@@ -1,0 +1,143 @@
+"""Saturating k-mer count tables as torch tensors.
+
+Port of localhgt_tpu/ops/count.py. Every table is the **plain int8
+[2^k]** layout, for every k: at k=32 that is 4 GiB a table, 12 GiB for
+three, which an 80 GB card holds (the reference's 4-bit packed k > 30
+layout exists to fit 16 GB). Hash indices are int64.
+
+Semantics are the reference's: per batch, each hash's contribution is
+capped at `cap` by ranking duplicates in the sorted batch, a scatter-add
+accumulates, and a (deferrable) clip gives min(total, cap). The hash value
+0xFFFFFFFF is the invalid sentinel and is never counted, so at k=32 the
+real all-ones k-mer keeps count 0, exactly as in the reference.
+
+`tables_from_jax` / `tables_to_jax` convert to and from the JAX package's
+layout, which is also the format of the `--count_ckpt` checkpoint files.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from localhgt_tpu_torch.ops import encode
+
+SENTINEL = 0xFFFFFFFF
+JAX_TABLE_BITS = 30        # the JAX package packs tables for k above this
+JAX_PACKED_FIELDS = 8      # 4-bit fields per int32 word in that layout
+
+
+def make_table(k: int, device) -> torch.Tensor:
+    return torch.zeros(1 << k, dtype=torch.int8, device=device)
+
+
+def table_lookup(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Gather int8 counts for int64 hashes."""
+    return table[h]
+
+
+def rank_capped_contrib(s: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-entry int8 contribution from SORTED int64 hashes s [C, N]: the
+    first `cap` entries of each run contribute 1, the rest 0, so the
+    scatter-add total per hash is exactly min(run_length, cap)."""
+    C, N = s.shape
+    pos = torch.arange(N, device=s.device).expand(C, N)
+    is_start = torch.ones_like(s, dtype=torch.bool)
+    is_start[:, 1:] = s[:, 1:] != s[:, :-1]
+    run_start = torch.cummax(torch.where(is_start, pos, 0), dim=1).values
+    return (((pos - run_start) < cap) & (s != SENTINEL)).to(torch.int8)
+
+
+def scatter_delta(table: torch.Tensor, s: torch.Tensor,
+                  contrib: torch.Tensor) -> None:
+    """Add the contributions of one sorted hash row into `table` in place;
+    sentinel and zero-contribution entries are dropped first."""
+    live = contrib != 0
+    table.index_add_(0, s[live], contrib[live])
+
+
+def sorted_contrib(codes, lengths, accept, masks, k: int, cap: int,
+                   kw: int = 0):
+    """Hash one read batch: (sorted int64 hashes [C, N] with invalid
+    windows as SENTINEL, their int8 contributions [C, N]). Arguments as in
+    count_reads_step."""
+    hashes, valid = encode.canonical_hashes(codes, masks, k)
+    L = codes.shape[-1]
+    if kw and kw < L:
+        hashes = hashes[:, :, :kw]
+        valid = valid[:, :kw]
+        L = kw
+    j = torch.arange(L, device=codes.device)
+    valid = (valid & (j[None, :] <= (lengths[:, None].long() - k))
+             & accept[:, None])
+    C = hashes.shape[0]
+    flat = torch.where(valid.reshape(1, -1), hashes.reshape(C, -1), SENTINEL)
+    del hashes, valid
+    s = torch.sort(flat, dim=1).values
+    del flat
+    return s, rank_capped_contrib(s, cap)
+
+
+def count_reads_step(tables, codes, lengths, accept, masks, k: int,
+                     cap: int = 3, clip: bool = True, kw: int = 0) -> None:
+    """Hash one read batch and update every table in place.
+
+    codes uint8 [B, L], lengths int32 [B], accept bool [B], all on the
+    tables' device. kw crops the k-mer start axis to the batch's real
+    window before the sort (0 = no crop), as in the reference; clip=False
+    defers the saturating sweep to clip_tables."""
+    s, contrib = sorted_contrib(codes, lengths, accept, masks, k, cap, kw)
+    for i, t in enumerate(tables):
+        scatter_delta(t, s[i], contrib[i])
+        if clip:
+            t.clamp_(max=cap)
+
+
+def clip_tables(tables, cap: int = 3) -> None:
+    for t in tables:
+        t.clamp_(max=cap)
+
+
+def clip_every_batches(cap: int = 3) -> int:
+    """Unclipped batches an int8 table absorbs: per-batch deltas are <= cap."""
+    return max(1, 120 // max(cap, 1) - 2)
+
+
+def tables_from_jax(arrays, k: int, device) -> list:
+    """JAX-layout tables (host arrays) -> plain int8 tensors on `device`.
+
+    For k > 30 the JAX layout is int32 words with eight 4-bit fields; field
+    f of word w is hash 8*w + f. For k <= 30 it is already int8 [2^k]."""
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        if k > JAX_TABLE_BITS:
+            if a.dtype != np.int32:
+                raise ValueError(f"k={k}: want packed int32 words, got "
+                                 f"{a.dtype}")
+            words = a.reshape(-1).view(np.uint32)
+            plain = np.empty(len(words) * JAX_PACKED_FIELDS, np.int8)
+            for f in range(JAX_PACKED_FIELDS):  # one field at a time: the
+                # k=32 table is 2^29 words, so no [words, 8] temporary
+                plain[f::JAX_PACKED_FIELDS] = (words >> np.uint32(4 * f)) & 15
+            a = plain
+        elif a.dtype != np.int8:
+            raise ValueError(f"k={k}: want int8 counts, got {a.dtype}")
+        out.append(torch.from_numpy(a.reshape(-1)).to(device))
+    return out
+
+
+def tables_to_jax(tables, k: int) -> list:
+    """Plain int8 tensors -> the JAX layout as numpy arrays (inverse of
+    tables_from_jax). Counts must already be clipped (<= 15)."""
+    out = []
+    for t in tables:
+        a = t.cpu().numpy()
+        if k > JAX_TABLE_BITS:
+            words = np.zeros(len(a) // JAX_PACKED_FIELDS, np.uint32)
+            for f in range(JAX_PACKED_FIELDS):
+                words |= (a[f::JAX_PACKED_FIELDS].astype(np.uint32)
+                          << np.uint32(4 * f))
+            a = words.view(np.int32)
+        out.append(a)
+    return out

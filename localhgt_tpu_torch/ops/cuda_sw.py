@@ -1,0 +1,205 @@
+"""Kernels K1 and K2: batched affine-gap Smith-Waterman.
+
+`sw_align` replaces localhgt_tpu/ops/pallas_sw.py::sw_align_pallas and
+`sw_score` replaces pallas_sw.py::sw_score_pallas. Each wrapper runs the
+CUDA kernel of `csrc/sw.cu` for CUDA tensors and its plain torch version
+(`sw_align_plain`, `sw_score_plain`: the Pallas bodies over [B, N]
+tensors) for CPU tensors, and raises on anything else.
+Each wrapper counts its kernel launches in `<wrapper>.launches`.
+
+What bounds the kernels on an H100 and how they are mapped is in the
+header of csrc/sw.cu.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from localhgt_tpu_torch import _build
+
+NEG = -(1 << 28)
+MAX_N = 16 * 32  # columns per lane x lanes, the widest reference window
+
+_P = ctypes.c_void_p
+_SIG = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+
+
+def _lib():
+    return _build.load("sw", {"lht_sw_align": _SIG, "lht_sw_score": _SIG})
+
+
+def _shift_down(x: torch.Tensor, s: int, fill: int) -> torch.Tensor:
+    """y[:, j] = x[:, j-s] for j >= s else fill (along the column axis)."""
+    return torch.nn.functional.pad(x[:, :-s], (s, 0), value=fill)
+
+
+def _substitution_rows(r: torch.Tensor, match: int, mismatch: int):
+    """int32 [5, B, N]: the substitution score of every reference column
+    against query code c = 0..4 (code 4, and reference code 4, never
+    match)."""
+    codes = torch.arange(5, device=r.device)[:, None, None]
+    hit = (r[None].long() == codes) & (codes < 4)
+    return torch.where(hit, match, mismatch).to(torch.int32)
+
+
+def _row_substitution(sub_by_code: torch.Tensor, q_col: torch.Tensor):
+    """[B, N] substitution scores of one query row (codes q_col [B])."""
+    q_col = q_col.clamp(max=4)
+    B, N = sub_by_code.shape[1:]
+    return torch.gather(sub_by_code, 0,
+                        q_col.view(1, B, 1).expand(1, B, N))[0]
+
+
+def _check_inputs(q: torch.Tensor, r: torch.Tensor) -> None:
+    if q.dtype != torch.uint8 or r.dtype != torch.uint8:
+        raise TypeError(f"sw: want uint8 codes, got {q.dtype} and {r.dtype}")
+    if q.dim() != 2 or r.dim() != 2 or q.shape[0] != r.shape[0]:
+        raise ValueError(f"sw: want [B, M] and [B, N], got {tuple(q.shape)} "
+                         f"and {tuple(r.shape)}")
+    if q.device != r.device:
+        raise ValueError(f"sw: query on {q.device}, reference on {r.device}")
+
+
+def _launch(fn: str, q, r, out, match, mismatch, gap_open, gap_ext):
+    if r.shape[1] > MAX_N:
+        raise ValueError(f"sw: reference width {r.shape[1]} > {MAX_N}")
+    q = q.contiguous()
+    r = r.contiguous()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = getattr(_lib(), fn)(
+        q.data_ptr(), r.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1],
+        r.shape[1], match, mismatch, gap_open, gap_ext, stream)
+    _build.check(err, fn)
+
+
+def sw_align_plain(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-4,
+                   gap_open=-6, gap_ext=-1) -> torch.Tensor:
+    """Plain torch version of K1: the Pallas _sw_align_kernel body over
+    [B, N] tensors, with E's log-step shift-max written as a cummax.
+    Returns int32 [B, 5] = score, qstart, qend, rstart, rend (all 0 when
+    score <= 0)."""
+    B, M = q.shape
+    N = r.shape[1]
+    dev = q.device
+    i32 = torch.int32
+    o, e, np1 = gap_open, gap_ext, N + 1
+    sub_by_code = _substitution_rows(r, match, mismatch)
+    qq = q.long()
+    jpos = torch.arange(N, dtype=i32, device=dev)[None, :]
+
+    def maxpair(av, ao, bv, bo):
+        # ties keep a's origin
+        return torch.maximum(av, bv), torch.where(bv > av, bo, ao)
+
+    H = torch.zeros((B, N), dtype=i32, device=dev)
+    O = torch.zeros_like(H)
+    Mf = torch.full((B, N), NEG, dtype=i32, device=dev)
+    MfO = torch.zeros_like(H)
+    bH = torch.zeros((B, 1), dtype=i32, device=dev)
+    bPack, bO, bI = bH.clone(), bH.clone(), bH.clone()
+    for i in range(M):
+        sub = _row_substitution(sub_by_code, qq[:, i])
+        Hd = _shift_down(H, 1, 0)
+        Od = _shift_down(O, 1, 0)
+        start_O = i * np1 + jpos
+        diag = Hd + sub
+        diagO = torch.where(Hd > 0, Od, start_O)
+        F = Mf + (o + i * e)
+        H1, O1 = maxpair(torch.clamp_min(diag, 0), diagO, F, MfO)
+        T0 = H1 - jpos * e
+        T = torch.cummax(T0, dim=1).values
+        # origin of the LATEST j' <= j holding the prefix max: the last
+        # record point at or before j (the Pallas shift-max keeps the
+        # current value on ties)
+        last = torch.cummax(torch.where(T0 == T, jpos, -1), dim=1).values
+        TO = torch.gather(O1, 1, last.long())
+        Tm = _shift_down(T, 1, NEG)
+        TmO = _shift_down(TO, 1, 0)
+        # H >= 0 already: H1 >= 0, and E replaces it only when greater
+        H, O = maxpair(H1, O1, Tm + o + jpos * e, TmO)
+        Mf, MfO = maxpair(Mf, MfO, H - i * e, O)
+        # row best: max H, then min j (pack is unique per j)
+        rowPack, rowJ = (H * N + (N - 1 - jpos)).max(dim=1, keepdim=True)
+        rowH = torch.div(rowPack, N, rounding_mode="floor")
+        rowO = torch.gather(O, 1, rowJ)
+        better = rowH > bH
+        bPack = torch.where(better, rowPack, bPack)
+        bO = torch.where(better, rowO, bO)
+        bI = torch.where(better, i, bI)
+        bH = torch.where(better, rowH, bH)
+    score = torch.clamp_min(bH, 0)
+    rend = (N - 1) - (bPack - bH * N)
+    qstart = torch.div(bO, np1, rounding_mode="floor")
+    rstart = bO - qstart * np1
+    zero = score <= 0
+    fields = [torch.where(zero, 0, x) for x in (qstart, bI, rstart, rend)]
+    return torch.cat([score, *fields], dim=1).to(i32)
+
+
+def sw_score_plain(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-2,
+                   gap_open=-3, gap_ext=-1) -> torch.Tensor:
+    """Plain torch version of K2: the Pallas _sw_score_kernel body over
+    [B, N] tensors, with E's log-step shift-max written as a cummax.
+    Returns int32 [B]."""
+    B, M = q.shape
+    N = r.shape[1]
+    dev = q.device
+    i32 = torch.int32
+    o, e = gap_open, gap_ext
+    sub_by_code = _substitution_rows(r, match, mismatch)
+    qq = q.long()
+    jpos = torch.arange(N, dtype=i32, device=dev)[None, :]
+    H = torch.zeros((B, N), dtype=i32, device=dev)
+    Mf = torch.full((B, N), NEG, dtype=i32, device=dev)
+    best = torch.zeros(B, dtype=i32, device=dev)
+    for i in range(M):
+        sub = _row_substitution(sub_by_code, qq[:, i])
+        Hd = _shift_down(H, 1, 0)
+        F = Mf + (o + i * e)
+        H1 = torch.maximum(torch.clamp_min(Hd + sub, 0), F)
+        T = torch.cummax(H1 - jpos * e, dim=1).values
+        Tm = _shift_down(T, 1, NEG)
+        H = torch.maximum(H1, Tm + o + jpos * e)
+        Mf = torch.maximum(Mf, H - i * e)
+        best = torch.maximum(best, H.amax(dim=1))
+    return best.to(i32)
+
+
+def sw_align(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-4,
+             gap_open=-6, gap_ext=-1) -> torch.Tensor:
+    """K1. q uint8 [B, M], r uint8 [B, N] (code 4 never matches) on one
+    device -> int32 [B, 5] on that device."""
+    _check_inputs(q, r)
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_ext=gap_ext)
+    if q.device.type == "cpu":
+        return sw_align_plain(q, r, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"sw_align: unsupported device {q.device}")
+    out = torch.empty((q.shape[0], 5), dtype=torch.int32, device=q.device)
+    _launch("lht_sw_align", q, r, out, *kw.values())
+    sw_align.launches += 1
+    return out
+
+
+def sw_score(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-2,
+             gap_open=-3, gap_ext=-1) -> torch.Tensor:
+    """K2. q uint8 [B, M], r uint8 [B, N] on one device -> int32 [B]."""
+    _check_inputs(q, r)
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_ext=gap_ext)
+    if q.device.type == "cpu":
+        return sw_score_plain(q, r, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"sw_score: unsupported device {q.device}")
+    out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
+    _launch("lht_sw_score", q, r, out, *kw.values())
+    sw_score.launches += 1
+    return out
+
+
+sw_align.launches = 0
+sw_score.launches = 0
