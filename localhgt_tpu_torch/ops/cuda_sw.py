@@ -5,7 +5,9 @@
 CUDA kernel of `csrc/sw.cu` for CUDA tensors and its plain torch version
 (`sw_align_plain`, `sw_score_plain`: the Pallas bodies over [B, N]
 tensors) for CPU tensors, and raises on anything else.
-Each wrapper counts its kernel launches in `<wrapper>.launches`.
+Each wrapper counts its kernel launches in `<wrapper>.launches`, and
+those of the wide-reference variant (N > NARROW_MAX_N) also in
+`<wrapper>.wide_launches`.
 
 What bounds the kernels on an H100 and how they are mapped is in the
 header of csrc/sw.cu.
@@ -20,7 +22,12 @@ import torch
 from localhgt_tpu_torch import _build
 
 NEG = -(1 << 28)
-MAX_N = 16 * 32  # columns per lane x lanes, the widest reference window
+# the widest reference windows: csrc/sw.cu runs N <= NARROW_MAX_N on one
+# warp per alignment and NARROW_MAX_N < N <= MAX_N on one block of N/256
+# warps
+NARROW_MAX_N = 512
+MAX_N = 4096
+MAX_CELLS = 1 << 31  # the origin register packs i*(N+1)+j into int32
 
 _P = ctypes.c_void_p
 _SIG = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -61,11 +68,16 @@ def _check_inputs(q: torch.Tensor, r: torch.Tensor) -> None:
                          f"and {tuple(r.shape)}")
     if q.device != r.device:
         raise ValueError(f"sw: query on {q.device}, reference on {r.device}")
+    M, N = q.shape[1], r.shape[1]
+    if N > MAX_N:
+        raise ValueError(f"sw: reference width {N} is above {MAX_N}, the "
+                         "widest window kernels K1 and K2 take")
+    if M * (N + 1) >= MAX_CELLS:
+        raise ValueError(f"sw: {M} query rows x {N + 1} reference columns "
+                         "overflow the int32 origin register")
 
 
 def _launch(fn: str, q, r, out, match, mismatch, gap_open, gap_ext):
-    if r.shape[1] > MAX_N:
-        raise ValueError(f"sw: reference width {r.shape[1]} > {MAX_N}")
     q = q.contiguous()
     r = r.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -182,6 +194,7 @@ def sw_align(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-4,
     out = torch.empty((q.shape[0], 5), dtype=torch.int32, device=q.device)
     _launch("lht_sw_align", q, r, out, *kw.values())
     sw_align.launches += 1
+    sw_align.wide_launches += int(r.shape[1] > NARROW_MAX_N)
     return out
 
 
@@ -198,8 +211,9 @@ def sw_score(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-2,
     out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
     _launch("lht_sw_score", q, r, out, *kw.values())
     sw_score.launches += 1
+    sw_score.wide_launches += int(r.shape[1] > NARROW_MAX_N)
     return out
 
 
-sw_align.launches = 0
-sw_score.launches = 0
+sw_align.launches = sw_align.wide_launches = 0
+sw_score.launches = sw_score.wide_launches = 0

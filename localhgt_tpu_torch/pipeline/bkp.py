@@ -1,6 +1,7 @@
 """End-to-end HGT breakpoint detection (`localhgt bkp`) on one device.
 
-Port of localhgt_tpu/pipeline/bkp.py::detect_breakpoint: extract (k-mer
+Port of localhgt_tpu/pipeline/bkp.py::detect_breakpoint: read QC (with
+refine_fq: adapter trimming and fastp's filter, io/qc.py) -> extract (k-mer
 stage, unless use_kmer=0) -> sub-reference + seed index -> seed-and-extend
 alignment (kernel K1) -> insert size -> raw junctions -> split-read SW
 refinement (kernel K2) -> dedup -> <sample>.acc.csv. The k-mer stage runs
@@ -10,6 +11,7 @@ multi-device mesh and no dispatch lookahead.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -22,6 +24,7 @@ from localhgt_tpu.index import reference
 from localhgt_tpu.io import fastq
 from localhgt_tpu.pipeline import rawbkp
 from localhgt_tpu.utils import formats, hostmem, metrics, validate
+from localhgt_tpu_torch.io import qc
 from localhgt_tpu_torch.pipeline import accbkp, align, extract
 
 log = logging.getLogger("localhgt_tpu_torch.bkp")
@@ -68,10 +71,6 @@ def detect_breakpoint(
 ) -> str:
     """Run breakpoint detection on `device`; returns the path of
     <sample>.acc.csv."""
-    if refine_fq:
-        raise NotImplementedError(
-            "--refine_fq (io/qc.py) is not ported to localhgt_tpu_torch yet; "
-            "see ROADMAP.md queue 1")
     device = torch.device(device)
     cfg = cfg or Config()
     validate.check_bkp_inputs(ref_path, fq1, fq2, outdir)
@@ -81,6 +80,18 @@ def detect_breakpoint(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(message)s", datefmt="%H:%M:%S",
     )
+
+    if refine_fq:
+        # fastp-equivalent QC (refine_fastq, infer_HGT_breakpoint.py:99-109)
+        r1 = os.path.join(outdir, f"{sample}_refined_1.fq")
+        r2 = os.path.join(outdir, f"{sample}_refined_2.fq")
+        with metrics.stage("qc"):
+            st = qc.refine_fastq(fq1, fq2, r1, r2, device)
+        for name, value in dataclasses.asdict(st).items():
+            metrics.add(f"qc_{name}", value)
+        log.info("qc: %d/%d pairs kept, %d adapter trims",
+                 st.pairs_out, st.pairs_in, st.adapter_trimmed)
+        fq1, fq2 = r1, r2
 
     contigs = reference.build(ref_path)
     log.info("reference: %d contigs, %d bp", contigs.n, len(contigs.codes))

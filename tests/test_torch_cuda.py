@@ -29,7 +29,7 @@ def _reads(rng, B, M, N, alpha=4):
     q = rng.integers(0, alpha, (B, M)).astype(np.uint8)
     r = rng.integers(0, alpha, (B, N)).astype(np.uint8)
     for b in range(0, B, 2):
-        off = int(rng.integers(0, N - M))
+        off = int(rng.integers(0, max(1, N - M)))
         r[b, off:off + M] = q[b]
         r[b, off + M // 2] = (r[b, off + M // 2] + 1) % alpha
     q[rng.random(q.shape) < 0.01] = 4
@@ -49,6 +49,33 @@ def test_sw_kernels_match_plain(dev, shape, alpha):
                                rtol=0, atol=0)
     torch.testing.assert_close(cuda_sw.sw_score(qd, rd),
                                cuda_sw.sw_score_plain(qd, rd), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(64, 150, 513), (48, 1000, 1000),
+                                   (32, 300, 1024), (8, 256, 4096)])
+@pytest.mark.parametrize("alpha", [2, 4])
+def test_sw_kernels_match_plain_wide_reference(dev, shape, alpha):
+    """N > 512 runs the one-block-per-alignment variant of csrc/sw.cu."""
+    q, r = _reads(np.random.default_rng(sum(shape) + alpha), *shape, alpha)
+    qd, rd = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+    n0 = cuda_sw.sw_align.wide_launches, cuda_sw.sw_score.wide_launches
+    torch.testing.assert_close(cuda_sw.sw_align(qd, rd),
+                               cuda_sw.sw_align_plain(qd, rd), rtol=0, atol=0)
+    torch.testing.assert_close(cuda_sw.sw_score(qd, rd),
+                               cuda_sw.sw_score_plain(qd, rd), rtol=0, atol=0)
+    assert (cuda_sw.sw_align.wide_launches,
+            cuda_sw.sw_score.wide_launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def test_sw_kernels_raise_above_the_widest_reference(dev):
+    q = torch.zeros((2, 16), dtype=torch.uint8, device=dev)
+    r = torch.zeros((2, cuda_sw.MAX_N + 1), dtype=torch.uint8, device=dev)
+    n0 = cuda_sw.sw_align.launches
+    with pytest.raises(ValueError, match="widest"):
+        cuda_sw.sw_align(q, r)
+    with pytest.raises(ValueError, match="widest"):
+        cuda_sw.sw_score(q, r)
+    assert cuda_sw.sw_align.launches == n0
 
 
 @pytest.mark.parametrize("seed", [1, 2])

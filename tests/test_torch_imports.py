@@ -23,7 +23,14 @@ def test_every_port_module_is_listed():
     mods = _port_modules()
     for name in ("localhgt_tpu_torch.cli", "localhgt_tpu_torch.ops.cuda_sw",
                  "localhgt_tpu_torch.ops.cuda_vote",
-                 "localhgt_tpu_torch.pipeline.bkp"):
+                 "localhgt_tpu_torch.pipeline.bkp",
+                 "localhgt_tpu_torch.io.qc", "localhgt_tpu_torch.ops.nw",
+                 "localhgt_tpu_torch.analysis.microhomology",
+                 "localhgt_tpu_torch.analysis.mechanism",
+                 "localhgt_tpu_torch.analysis.classifier",
+                 "localhgt_tpu_torch.analysis.cohort",
+                 "localhgt_tpu_torch.tools.validate_events",
+                 "localhgt_tpu_torch.tools.kmer_stats"):
         assert name in mods
 
 

@@ -78,8 +78,21 @@ def test_port_direct_mode_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """--multi_chip on is the one option left unported; `analyze` runs and
+    writes the JAX CLI's JSON."""
+    from localhgt_tpu import cli as jax_cli
+
     args = ["bkp", "-r", "x.fa", "--fq1", "a.fq", "--fq2", "b.fq",
             "-o", str(tmp_path), "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(args + ["--multi_chip", "on"])
-    assert cli.main(["analyze", "stats"]) == 2
+    acc = tmp_path / "gold.acc.csv"
+    acc.write_bytes(_bytes(os.path.join(GOLD, "gold.acc.csv")))
+    outs = []
+    for name, main in (("jax", jax_cli.main), ("torch", cli.main)):
+        out = tmp_path / f"{name}.json"
+        assert main(["analyze", "stats", "-b", str(tmp_path),
+                     "-f", str(out)]) == 0
+        outs.append(out.read_bytes())
+    assert b'"n_samples": 1' in outs[1]
+    assert outs[1] == outs[0]

@@ -124,6 +124,27 @@ def test_tiled_entry_points_match_reference():
                                   sc[:2])
 
 
+@pytest.mark.parametrize("shape", [(4, 2, cuda_sw.MAX_N + 1),
+                                   (4, 1 << 19, cuda_sw.MAX_N)])
+def test_wrappers_reject_windows_above_the_kernels_limits(shape):
+    """Above MAX_N reference columns, or where i*(N+1)+j overflows int32,
+    both wrappers raise on every device (the plain version is not a
+    fallback)."""
+    B, M, N = shape
+    q = torch.zeros((B, M), dtype=torch.uint8)
+    r = torch.zeros((B, N), dtype=torch.uint8)
+    for fn in (cuda_sw.sw_align, cuda_sw.sw_score):
+        with pytest.raises(ValueError, match="widest|int32"):
+            fn(q, r)
+
+
+def test_sw_plain_at_a_wide_reference():
+    """N > 512 (the kernels' wide variant on the card): the plain version
+    against the Pallas kernel in interpret mode."""
+    q, r = _tie_heavy(14, 8, 40, 600)
+    np.testing.assert_array_equal(_plain_align(q, r), _pallas_align(q, r))
+
+
 def test_wrappers_reject_other_devices_and_types():
     q = torch.zeros((2, 8), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError):
