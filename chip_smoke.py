@@ -8,8 +8,12 @@ Phases, each fatal on failure:
   2. build kernels K1/K2 (csrc/sw.cu) and K3 (csrc/vote.cu), one nvcc
      each, in parallel;
   3. each kernel against its plain torch version on the card, exact integer
-     equality, both timed with CUDA events: at the bkp path's shapes, and
-     K1/K2 at validate_events' wide reference (B=512, M=N=1,000);
+     equality, both timed with CUDA events and printed beside the kernel's
+     bound (the larger of its bytes over 3.35 TB/s and its integer
+     operations over SMs x 64 lanes x the SM clock): at the bkp path's
+     shapes, K1/K2 also at validate_events' wide reference (B=512,
+     M=N=1,000), K3 also at the main path's candidate density, at a ragged
+     B and at a P that is no multiple of 4;
   4. simulate the `big` fixture (100 genomes x 1 Mbp, 50 HGTs, depth 5,
      seed 42) in a temporary directory;
   5. `bkp` at k=32 through the port's CLI entry on the card: every kernel
@@ -27,7 +31,8 @@ Phases, each fatal on failure:
  10. `kmer_stats` at k=24 on one mate of `big`.
 Each phase's kernel launches are counted from 0 just before it and read
 just after. The last two lines of standard output are the kernels' JSON
-record and {"ok": true, "device": {...}}. Imports nothing of JAX.
+record and {"ok": true, "device": {...}}. Imports nothing of JAX and
+nothing of the JAX package `localhgt_tpu`.
 """
 
 from __future__ import annotations
@@ -56,6 +61,20 @@ MIN_VALIDATED = 0.90
 SOURCE = "localhgt_tpu_torch/csrc/sw.cu"
 K1_TPU = "localhgt_tpu/ops/pallas_sw.py:208"
 K2_TPU = "localhgt_tpu/ops/pallas_sw.py:89"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_LANES_PER_SM = 64
+# Integer operations a cell of the recurrences of sw_align_plain and
+# sw_score_plain, a fused add-max (DPX) counted as one. K2: substitution
+# (compare, select), diagonal add-max-0, F add, H1 max, T0 add, prefix
+# max, E add-max, Mf add-max, best max = 10. K1 adds the row-best pack
+# (multiply-add) and, for the origins, start_O add, diagonal origin
+# (compare, select), and a select or compare-select behind each of the
+# five maxima (1 + 2 + 2 + 2 + 1) = 22.
+K1_OPS_PER_CELL, K2_OPS_PER_CELL = 22, 10
+# K3, counted from the data: 2G operations (compare, select-max) per
+# non-zero candidate and 3G (compare, increment or victim search and
+# insert) per position that has one
+K3_OPS_PER_CANDIDATE, K3_OPS_PER_HIT = 16, 24
 
 
 def log(msg: str) -> None:
@@ -69,19 +88,19 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean ms per call on the current stream, after one warm-up call."""
+def int32_ops_per_s() -> float:
+    """SMs x 64 INT32 lanes x the SM clock nvidia-smi reads as the card's
+    maximum."""
     import torch
 
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(res.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[env] {sms} SMs, clocks.max.sm {mhz:.0f} MHz")
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
 
 
 def sw_inputs(rng, B: int, M: int, N: int, tie_heavy: bool):
@@ -110,12 +129,17 @@ def check_kernels(dev) -> list:
     that phases 5-9 read their launches from."""
     import torch
 
+    from localhgt_tpu_torch import tune_vote
     from localhgt_tpu_torch.ops import cuda_sw, cuda_vote
 
     rng = np.random.default_rng(2024)
+    ops_per_s = int32_ops_per_s()
     out = []
 
-    def compare(name, replaces, kern, plain, reps, source=SOURCE):
+    def compare(name, replaces, kern, plain, reps, nbytes, ops,
+                source=SOURCE):
+        """nbytes: every input read once and every output written once;
+        ops: the integer operations these inputs need."""
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -123,69 +147,86 @@ def check_kernels(dev) -> list:
         want = want if isinstance(want, tuple) else (want,)
         err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
-        ms = time_ms(kern, reps)
-        plain_ms = time_ms(plain, 2)
+        ms = tune_vote.time_ms(kern, reps)
+        plain_ms = tune_vote.time_ms(plain, 2)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / ops_per_s * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         log(f"[kernels] {name}: max_abs_err={err} kernel {ms:.3f} ms, "
-            f"plain torch {plain_ms:.3f} ms")
+            f"bound {bound_ms:.3f} ms by {bound_by} (bytes {bytes_ms:.3f}, "
+            f"operations {ops_ms:.3f}; {bound_ms / ms:.1%} of the bound "
+            f"reached), plain torch {plain_ms:.3f} ms, library call: none")
         if err != 0:
             raise SystemExit(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {err})")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms}
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
 
     def sw_pair(B, M, N, tie):
         q, r = sw_inputs(rng, B, M, N, tie)
         return torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
 
+    def sw_both(B, M, N, tie, sfx, k2: bool):
+        """K1 (and K2 when asked) on one input; returns K1's record."""
+        qd, rd = sw_pair(B, M, N, tie)
+        cells = B * M * N
+        rec = compare(
+            "sw_align" + sfx, K1_TPU, lambda: cuda_sw.sw_align(qd, rd),
+            lambda: cuda_sw.sw_align_plain(qd, rd), 10,
+            B * (M + N) + B * 20, cells * K1_OPS_PER_CELL)
+        if k2:
+            compare("sw_score" + sfx, K2_TPU,
+                    lambda: cuda_sw.sw_score(qd, rd),
+                    lambda: cuda_sw.sw_score_plain(qd, rd), 10,
+                    B * (M + N) + B * 4, cells * K2_OPS_PER_CELL)
+        return rec
+
     # K1 at the align stage's shapes: 150-bp reads in a 192-wide batch,
     # reference window 192 + 2*32
-    for tie in (False, True):
-        qd, rd = sw_pair(8192, 192, 256, tie)
-        rec = compare(
-            "sw_align" + ("_tie_heavy" if tie else ""), K1_TPU,
-            lambda: cuda_sw.sw_align(qd, rd),
-            lambda: cuda_sw.sw_align_plain(qd, rd), reps=10)
-        if not tie:
-            out.append(rec)
+    out.append(sw_both(8192, 192, 256, False, "", False))
+    sw_both(8192, 192, 256, True, "_tie_heavy", False)
     # K2 at the accbkp window-scan shapes (clip length padded to 32s)
     qd, rd = sw_pair(8192, 160, 160, False)
     out.append(compare(
         "sw_score", K2_TPU, lambda: cuda_sw.sw_score(qd, rd),
-        lambda: cuda_sw.sw_score_plain(qd, rd), reps=10))
+        lambda: cuda_sw.sw_score_plain(qd, rd), 10,
+        8192 * 320 + 8192 * 4, 8192 * 160 * 160 * K2_OPS_PER_CELL))
+    del qd, rd
+
     # K3 at the vote's shapes: 3 hash functions, 65,536 pairs, 2 x 128
-    # k-mer starts, 8 slots; 40 genomes so registers overflow and evict
-    C, B, P, n_peaks = 3, 65_536, 256, 5000
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    peak_contig = torch.randint(1, 41, (n_peaks + 1,), generator=gen,
-                                device=dev, dtype=torch.int32)
-    peak_contig[0] = 0
-    pk = torch.randint(1, n_peaks + 1, (C, B, P), generator=gen, device=dev,
-                       dtype=torch.int32)
-    density = torch.rand((1, B, 1), generator=gen, device=dev) * 0.6
-    pk = torch.where(torch.rand((C, B, P), generator=gen, device=dev)
-                     < density, pk, 0)
-    genome = peak_contig[pk.long()]
-    out.append(compare(
-        "vote_state", "localhgt_tpu/ops/pallas_vote.py:111",
-        lambda: cuda_vote.vote_state(genome, pk),
-        lambda: cuda_vote.vote_state_plain(genome, pk), reps=10,
-        source="localhgt_tpu_torch/csrc/vote.cu"))
+    # k-mer starts, 8 slots. Dense seeded input (40 genomes, registers
+    # overflow and evict), the main path's density (tune_vote.REAL_SHARE),
+    # a ragged B (the last batch of `big`), and an odd P with a ragged B
+    # (the 4-byte copy path)
+    def vote(name, genome, pk):
+        C, B, P = pk.shape
+        hits = int(cuda_vote.vote_state(genome, pk)[3].sum())
+        return compare(
+            name, "localhgt_tpu/ops/pallas_vote.py:111",
+            lambda: cuda_vote.vote_state(genome, pk),
+            lambda: cuda_vote.vote_state_plain(genome, pk), 10,
+            2 * C * B * P * 4 + B * (3 * 8 + 1) * 4,
+            int((pk != 0).sum()) * K3_OPS_PER_CANDIDATE
+            + hits * K3_OPS_PER_HIT,
+            source="localhgt_tpu_torch/csrc/vote.cu")
+
+    dense = tune_vote.dense_inputs(dev)
+    out.append(vote("vote_state", *dense))
+    vote("vote_state_ragged",
+         *(x[:, :37_765].contiguous() for x in dense))
+    vote("vote_state_odd_p",
+         *(x[:, :4_097, :203].contiguous() for x in dense))
+    del dense
+    vote("vote_state_real_density", *tune_vote.real_like_inputs(dev))
     # K1 and K2 at validate_events' shape: 512 queries against junction
     # windows 2 x 500 bp wide, the one-block-per-alignment variant. K2's
     # wide variant runs on no path of the port; its check stays out of the
     # kernels record, whose launches come from the paths.
-    for tie in (False, True):
-        qd, rd = sw_pair(512, 1000, 1000, tie)
-        sfx = "_wide" + ("_tie_heavy" if tie else "")
-        rec = compare(
-            "sw_align" + sfx, K1_TPU, lambda: cuda_sw.sw_align(qd, rd),
-            lambda: cuda_sw.sw_align_plain(qd, rd), reps=10)
-        compare("sw_score" + sfx, K2_TPU, lambda: cuda_sw.sw_score(qd, rd),
-                lambda: cuda_sw.sw_score_plain(qd, rd), reps=10)
-        if not tie:
-            out.append(rec)
+    out.append(sw_both(512, 1000, 1000, False, "_wide", True))
+    sw_both(512, 1000, 1000, True, "_wide_tie_heavy", True)
     return out
 
 
@@ -218,9 +259,9 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
     that K1-K3 launched; returns the launch counts."""
     import torch
 
-    from localhgt_tpu.sim import evaluate
-    from localhgt_tpu.sim.simulate import read_truth
-    from localhgt_tpu.utils import formats, metrics
+    from localhgt_tpu_torch.sim import evaluate
+    from localhgt_tpu_torch.sim.simulate import read_truth
+    from localhgt_tpu_torch.utils import formats, metrics
     from localhgt_tpu_torch import cli
     from localhgt_tpu_torch.utils import device as device_mod
 
@@ -311,7 +352,7 @@ def write_toy_cohort(folder: str, seed: int) -> str:
     """40 samples in two cohorts: one group-specific junction each (every
     9th sample carries the other group's) and a random one; returns the
     phenotype CSV."""
-    from localhgt_tpu.utils import formats
+    from localhgt_tpu_torch.utils import formats
 
     rng = np.random.default_rng(seed)
     os.makedirs(folder)
@@ -379,11 +420,11 @@ def run_analyses(dev, work: str, ref: str, events: str) -> None:
 def run_validate(dev, work: str, ref: str, events: str, truth: str) -> dict:
     """validate_events on the event calls that match truth; returns the
     launch counts."""
-    from localhgt_tpu.io import fasta
-    from localhgt_tpu.ops import coder
-    from localhgt_tpu.sim.evaluate import TOLERATE_DIST
-    from localhgt_tpu.sim.simulate import read_truth
-    from localhgt_tpu.tools.validate_events import reconstruct_junctions
+    from localhgt_tpu_torch.io import fasta
+    from localhgt_tpu_torch.ops import coder
+    from localhgt_tpu_torch.sim.evaluate import TOLERATE_DIST
+    from localhgt_tpu_torch.sim.simulate import read_truth
+    from localhgt_tpu_torch.tools.validate_events import reconstruct_junctions
     from localhgt_tpu_torch.tools import validate_events
 
     truth = read_truth(truth)
@@ -458,7 +499,7 @@ def run_kmer_stats(dev, fq1: str) -> None:
 
 
 def run_pipeline(dev, kernels: list) -> None:
-    from localhgt_tpu.sim.simulate import SimParams, simulate_sample
+    from localhgt_tpu_torch.sim.simulate import SimParams, simulate_sample
     from localhgt_tpu_torch import cli
 
     work = tempfile.mkdtemp(prefix="lht_smoke_")

@@ -38,23 +38,30 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin: the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, extra_flags: tuple = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = " ".join([*NVCC_FLAGS, *extra_flags])
+    key = hashlib.sha1(src + flags.encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{key}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its content-keyed library exists."""
-    so = library_path(name)
+def build(name: str, extra_flags: tuple = ()) -> Path:
+    """Compile csrc/<name>.cu unless its content-keyed library exists.
+
+    extra_flags: more nvcc flags (`-D...` of a tuning run, `-Xptxas -v`);
+    the package's own loads pass none."""
+    so = library_path(name, extra_flags)
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{res.stderr}")
+    if "-v" in extra_flags:  # ptxas reports registers and spills on stderr
+        print(res.stderr, flush=True)
     os.replace(tmp, so)
     return so
 

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from localhgt_tpu.ops.coder import _ASCII_TO_CODE
+from localhgt_tpu_torch.ops.coder import _ASCII_TO_CODE
 
 OVERLAP_REQUIRE = 30      # fastp overlap_len_require
 OVERLAP_DIFF_LIMIT = 5    # fastp overlap_diff_limit

@@ -17,9 +17,10 @@ import torch
 from localhgt_tpu_torch import _build
 
 _P = ctypes.c_void_p
-_SIG = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+SIGNATURE = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, _P]
 KERNEL_SLOTS = 8  # the register size the CUDA kernel is built for
+KERNEL_MAX_HASHES = 9  # C it is instantiated for (config: 1-9)
 
 
 def vote_state_plain(genome: torch.Tensor, pk: torch.Tensor,
@@ -90,23 +91,32 @@ def vote_state(genome: torch.Tensor, pk: torch.Tensor, n_slots: int = 8):
     if n_slots != KERNEL_SLOTS:
         raise ValueError(f"vote_state: the CUDA kernel has {KERNEL_SLOTS} "
                          f"slots, not {n_slots}")
+    if pk.shape[0] > KERNEL_MAX_HASHES:
+        raise ValueError(f"vote_state: the CUDA kernel takes at most "
+                         f"{KERNEL_MAX_HASHES} hash functions, not "
+                         f"{pk.shape[0]}")
+    out = launch(_build.load("vote", {"lht_vote_state": SIGNATURE}),
+                 genome, pk)
+    vote_state.launches += 1
+    return out
+
+
+def launch(lib, genome: torch.Tensor, pk: torch.Tensor):
+    """Launch `lht_vote_state` of a loaded library on CUDA tensors. The
+    kernel reads the [C, B, P] layout as it is: no transposed copy."""
     C, B, P = pk.shape
-    G = n_slots
-    # position-major [P, C, B]: neighbouring threads read neighbouring pairs
-    cg = genome.permute(2, 0, 1).contiguous()
-    cp = pk.permute(2, 0, 1).contiguous()
+    cg = genome.contiguous()
+    cp = pk.contiguous()
     dev = pk.device
-    og = torch.empty((B, G), dtype=torch.int32, device=dev)
+    og = torch.empty((B, KERNEL_SLOTS), dtype=torch.int32, device=dev)
     oc = torch.empty_like(og)
     op = torch.empty_like(og)
     oh = torch.empty(B, dtype=torch.int32, device=dev)
-    lib = _build.load("vote", {"lht_vote_state": _SIG})
     err = lib.lht_vote_state(
         cg.data_ptr(), cp.data_ptr(), og.data_ptr(), oc.data_ptr(),
-        op.data_ptr(), oh.data_ptr(), B, P, C, G,
+        op.data_ptr(), oh.data_ptr(), B, P, C, KERNEL_SLOTS,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "lht_vote_state")
-    vote_state.launches += 1
     return og, oc, op, oh
 
 

@@ -5,14 +5,15 @@ described there). Hashes are carried as **int64** holding 32-bit unsigned
 values: torch's uint32 has no shifts, `~`, `minimum` or `<` on the CPU, and
 int64 keeps the unsigned order that the canonical min and the 0xFFFFFFFF
 count sentinel rely on. Every shift left and every `~` is masked back to
-32 bits. The masks and `hasher_for` are reused from the JAX package.
+32 bits. `hasher_for` is copied from the JAX package.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from localhgt_tpu.ops.encode import hasher_for  # noqa: F401  (re-export)
+from localhgt_tpu_torch.ops import coder
 
 U32 = 0xFFFFFFFF
 
@@ -95,3 +96,10 @@ def canonical_hashes(codes: torch.Tensor, masks, k: int):
         rev = (r0 & m0) | (r1 & m1) | (r2 & m2)
         outs.append(torch.minimum(fwd, rev))
     return torch.stack(outs, dim=0), valid
+
+
+def hasher_for(k: int, coder_num: int, seed: int):
+    """Convenience: returns (masks uint32 [coder_num,3], choose_coder)."""
+    cc = coder.choose_coder(k, coder_num, seed)
+    masks = coder.hash_masks(cc, k).astype(np.uint32)
+    return masks, cc

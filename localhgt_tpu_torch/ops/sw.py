@@ -14,7 +14,7 @@ import time
 import numpy as np
 import torch
 
-from localhgt_tpu.utils import metrics
+from localhgt_tpu_torch.utils import metrics
 from localhgt_tpu_torch.ops import cuda_sw
 
 SW_TILE = 8192  # rows per kernel call on the card

@@ -1,25 +1,344 @@
 """Seed-and-extend read alignment against the extracted sub-reference.
 
-Port of the device parts of localhgt_tpu/pipeline/align.py: `align_batch`
-(its Smith-Waterman extension runs in kernel K1) and the seed prefilter,
-a 2^27-word prefix bitmap plus a forward/reverse-complement probe kept on
-the device. The dataclasses and host helpers are re-exported from the JAX
-package unchanged.
+Port of localhgt_tpu/pipeline/align.py. The dataclasses and host helpers
+(sub-reference, seed index, candidate grouping, mapq model) are copied from
+the JAX package line for line; `align_batch` runs its Smith-Waterman
+extension in kernel K1, and the seed prefilter, a 2^27-word prefix bitmap
+plus a forward/reverse-complement probe, is kept on the device.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
 import torch
 
-from localhgt_tpu.config import AlignConfig
-from localhgt_tpu.pipeline.align import (  # noqa: F401  (re-exports)
-    PREFILTER_LEN, SEP, AlnTable, SeedIndex, SubRef, _bwa_mapq,
-    _expand_table, _group_candidates, _revcomp_batch, build_subref)
-from localhgt_tpu.utils import metrics
+from localhgt_tpu_torch.config import AlignConfig
+from localhgt_tpu_torch.io import fasta, native
 from localhgt_tpu_torch.ops import sw as swmod
+from localhgt_tpu_torch.ops.coder import COMPLEMENT
+from localhgt_tpu_torch.utils import metrics
+
+
+
+@dataclass
+class SubRef:
+    codes: np.ndarray        # uint8 [R] concatenated segments, N separators
+    seg_contig: np.ndarray   # int32 [S] original contig id (1-based)
+    seg_start: np.ndarray    # int64 [S] original 0-based start
+    seg_off: np.ndarray      # int64 [S] offset into codes
+    seg_len: np.ndarray      # int64 [S]
+
+    def lift(self, flat_pos: np.ndarray):
+        """Flat coordinates -> (contig id, original position)."""
+        flat_pos = np.asarray(flat_pos, dtype=np.int64)
+        seg = np.searchsorted(self.seg_off, flat_pos, side="right") - 1
+        seg = np.clip(seg, 0, len(self.seg_off) - 1)
+        within = flat_pos - self.seg_off[seg]
+        contig = self.seg_contig[seg]
+        orig = self.seg_start[seg] + np.clip(within, 0, self.seg_len[seg] - 1)
+        return contig, orig, seg
+
+
+SEP = 24  # N bases between segments; > gap affordable by the SW scoring
+
+
+def build_subref(contigs: fasta.Contigs, intervals) -> SubRef:
+    """intervals: iterable of (contig_id, start_1based, end_1based_incl)."""
+    segs = []
+    for cid, s1, e1 in intervals:
+        codes = contigs.slice_codes(cid, s1 - 1, e1)
+        if len(codes) == 0:
+            continue
+        segs.append((cid, s1 - 1, codes))
+    if not segs:
+        return SubRef(
+            np.zeros(0, np.uint8), np.zeros(0, np.int32), np.zeros(0, np.int64),
+            np.zeros(0, np.int64), np.zeros(0, np.int64),
+        )
+    sep = np.full(SEP, 4, np.uint8)
+    parts = []
+    offs = []
+    off = 0
+    for cid, s0, codes in segs:
+        offs.append(off)
+        parts.append(codes)
+        parts.append(sep)
+        off += len(codes) + SEP
+    blob = np.concatenate(parts)
+    return SubRef(
+        codes=blob,
+        seg_contig=np.array([c for c, _, _ in segs], np.int32),
+        seg_start=np.array([s for _, s, _ in segs], np.int64),
+        seg_off=np.array(offs, np.int64),
+        seg_len=np.array([len(c) for _, _, c in segs], np.int64),
+    )
+
+
+def _pack_seeds(codes: np.ndarray, s: int) -> tuple[np.ndarray, np.ndarray]:
+    """2-bit packed s-mer at every start position; invalid (contains N) flagged.
+
+    codes: uint8 [..., L]. Returns (hash uint64 [..., L-s+1], valid bool).
+    """
+    L = codes.shape[-1]
+    n = L - s + 1
+    if n <= 0:
+        shp = codes.shape[:-1] + (0,)
+        return np.zeros(shp, np.uint64), np.zeros(shp, bool)
+    return _pack_seeds_at(codes, s, np.arange(n))
+
+
+def _pack_seeds_at(codes: np.ndarray, s: int, starts: np.ndarray):
+    """_pack_seeds evaluated only at the given start positions — the seeding
+    hot path samples every `seed_stride` positions, so hashing all L-s+1
+    windows first wastes ~stride x the work."""
+    h = np.zeros(codes.shape[:-1] + (len(starts),), np.uint64)
+    bad = np.zeros(h.shape, dtype=np.int32)
+    for z in range(s):
+        col = codes[..., starts + z]
+        h = (h << np.uint64(2)) | (col.astype(np.uint64) & np.uint64(3))
+        bad += (col >= 4).astype(np.int32)
+    return h, bad == 0
+
+
+PREFILTER_LEN = 16  # seed-prefix bases for the device membership test (32 bits)
+
+
+@dataclass
+class SeedIndex:
+    s: int
+    sorted_hash: np.ndarray   # uint64 [K]
+    sorted_pos: np.ndarray    # int64 [K]
+    # sorted unique 32-bit hashes of the first PREFILTER_LEN seed bases,
+    # padded to a pow2 bucket (pad = last element, keeps order + membership):
+    # the device prefilter tests read windows against this set
+    prefix32: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint32))
+
+    @classmethod
+    def build(cls, subref: SubRef, s: int):
+        h, valid = _pack_seeds(subref.codes, s)
+        pos = np.flatnonzero(valid).astype(np.int64)
+        hv = h[valid]
+        order = np.argsort(hv, kind="stable")
+        hv = hv[order]
+        pre = np.unique(
+            (hv >> np.uint64(2 * (s - PREFILTER_LEN))).astype(np.uint32)
+        ) if s >= PREFILTER_LEN and len(hv) else np.zeros(0, np.uint32)
+        if len(pre):
+            cap = 1 << (len(pre) - 1).bit_length()
+            pre = np.concatenate(
+                [pre, np.full(cap - len(pre), pre[-1], np.uint32)])
+        return cls(s, hv, pos[order], prefix32=pre)
+
+    def lookup(self, query_hash: np.ndarray, max_occ: int):
+        """Return (hit_query_idx, hit_pos): up to max_occ subref positions per
+        query seed (high-frequency seeds truncated, like bwa's occ cap)."""
+        lo = np.searchsorted(self.sorted_hash, query_hash, side="left")
+        hi = np.searchsorted(self.sorted_hash, query_hash, side="right")
+        cnt = np.minimum(hi - lo, max_occ)
+        total = int(cnt.sum())
+        if total == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        qidx = np.repeat(np.arange(len(query_hash)), cnt)
+        # per-hit offset within its run
+        offs = np.arange(total) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        return qidx, self.sorted_pos[np.repeat(lo, cnt) + offs]
+
+
+@dataclass
+class AlnTable:
+    """Primary (+ optional split) alignment per read end, original coords.
+
+    Convention mirrors SAM/pysam fields used downstream: `pos` is the 0-based
+    leftmost reference coordinate; `strand` 1 means the read aligned
+    reverse-complemented and `qstart/qend` (inclusive) are on the oriented
+    (stored) sequence, exactly like CIGAR soft-clips on a reverse-strand SAM
+    record.
+    """
+
+    read_id: np.ndarray
+    mate: np.ndarray
+    contig: np.ndarray
+    pos: np.ndarray
+    rend: np.ndarray
+    strand: np.ndarray
+    qstart: np.ndarray
+    qend: np.ndarray
+    score: np.ndarray
+    mapq: np.ndarray
+    rlen: np.ndarray
+    # split (SA) alignment; contig2 == -1 when absent
+    contig2: np.ndarray
+    pos2: np.ndarray
+    rend2: np.ndarray
+    strand2: np.ndarray
+    qstart2: np.ndarray
+    qend2: np.ndarray
+    score2: np.ndarray
+    # bwa XA equivalent: an overlapping alternative placement scored within
+    # 80% of the primary exists (bwa mem's XA drop ratio; consumed by
+    # get_raw_bkp.py:55-77 when -a 0 drops XA-tagged reads)
+    has_alt: np.ndarray = field(default_factory=lambda: np.zeros(0, bool))
+
+    def __len__(self):
+        return len(self.read_id)
+
+    @classmethod
+    def empty(cls):
+        z8, z16 = np.zeros(0, np.int8), np.zeros(0, np.int16)
+        z32, z64 = np.zeros(0, np.int32), np.zeros(0, np.int64)
+        return cls(z64, z8, z32.copy(), z64.copy(), z64.copy(), z8.copy(),
+                   z32.copy(), z32.copy(), z32.copy(), z16, z32.copy(),
+                   z32.copy(), z64.copy(), z64.copy(), z8.copy(),
+                   z32.copy(), z32.copy(), z32.copy(), np.zeros(0, bool))
+
+    @classmethod
+    def concat(cls, tables):
+        tables = [t for t in tables if len(t)]
+        if not tables:
+            return cls.empty()
+        kw = {
+            f: np.concatenate([getattr(t, f) for t in tables])
+            for f in cls.__dataclass_fields__
+        }
+        return cls(**kw)
+
+
+def _group_candidates(qidx, diag, qoff, n_queries, gap, max_candidates, min_votes):
+    """Cluster seed hits into candidate locations per (query) row.
+
+    Returns dense arrays [n_queries, max_candidates]: diag_repr (int64),
+    votes, qmin, qmax, valid mask. Vectorized: sort by (query, diag), split
+    runs where query changes or diag jumps by > gap, segment-reduce, rank by
+    votes within query.
+    """
+    C = max_candidates
+    out_diag = np.zeros((n_queries, C), np.int64)
+    out_votes = np.zeros((n_queries, C), np.int32)
+    out_qmin = np.zeros((n_queries, C), np.int32)
+    out_qmax = np.zeros((n_queries, C), np.int32)
+    out_ok = np.zeros((n_queries, C), bool)
+    if len(qidx) == 0:
+        return out_diag, out_votes, out_qmin, out_qmax, out_ok
+    order = np.lexsort((diag, qidx))
+    q = qidx[order]
+    d = diag[order]
+    o = qoff[order]
+    new = np.ones(len(q), bool)
+    new[1:] = (q[1:] != q[:-1]) | (d[1:] - d[:-1] > gap)
+    gid = np.cumsum(new) - 1
+    ng = gid[-1] + 1
+    g_votes = np.bincount(gid, minlength=ng)
+    g_q = q[new]
+    g_diag = d[new]
+    g_qmin = np.full(ng, 1 << 30, np.int64)
+    np.minimum.at(g_qmin, gid, o)
+    g_qmax = np.zeros(ng, np.int64)
+    np.maximum.at(g_qmax, gid, o)
+    keep = g_votes >= min_votes
+    g_q, g_diag, g_votes, g_qmin, g_qmax = (
+        a[keep] for a in (g_q, g_diag, g_votes, g_qmin, g_qmax)
+    )
+    if len(g_q) == 0:
+        return out_diag, out_votes, out_qmin, out_qmax, out_ok
+    # rank groups within each query by votes desc
+    order2 = np.lexsort((-g_votes, g_q))
+    g_q, g_diag, g_votes, g_qmin, g_qmax = (
+        a[order2] for a in (g_q, g_diag, g_votes, g_qmin, g_qmax)
+    )
+    first = np.ones(len(g_q), bool)
+    first[1:] = g_q[1:] != g_q[:-1]
+    rank = np.arange(len(g_q)) - np.maximum.accumulate(
+        np.where(first, np.arange(len(g_q)), 0)
+    )
+    sel = rank < C
+    rr = rank[sel]
+    qq = g_q[sel]
+    out_diag[qq, rr] = g_diag[sel]
+    out_votes[qq, rr] = g_votes[sel]
+    out_qmin[qq, rr] = g_qmin[sel]
+    out_qmax[qq, rr] = g_qmax[sel]
+    out_ok[qq, rr] = True
+    return out_diag, out_votes, out_qmin, out_qmax, out_ok
+
+
+def _bwa_mapq(p_score, comp_score, sub_n, aln_len, cfg) -> np.ndarray:
+    """bwa-mem's published mapq model (mem_approx_mapq_se, bwamem.c):
+
+        sub  = max(best competitor, min_seed_len * a)
+        iden = 1 - (l*a - score) / (a + b) / l          # percent identity
+        tmp  = (l < 50 ? 1 : log(50)/log(l)) * iden^2
+        mapq = 6.02 * (score - sub) / a * tmp^2
+        mapq -= 4.343 * ln(sub_n + 1);  clip [0, 60];  0 when sub >= score
+
+    replacing the round-2 linear heuristic clip(6*(score-comp)) so the
+    mapq >= 20 gates downstream (get_raw_bkp.py:55-61, accurate_bkp) see
+    bwa-calibrated values: short or repetitive placements drop below 20 the
+    way bwa drops them, instead of saturating at 60 whenever no competitor
+    was found. frac_rep (bwa's repeat-fraction damping) has no analog here
+    and is treated as 0. Validated by tools/mapq_calibration.py + the
+    tightened gates in tests/test_direct_mode.py (r2 ask #6)."""
+    a = float(cfg.match)
+    b = float(-cfg.mismatch)
+    score = p_score.astype(np.float64)
+    sub = np.maximum(comp_score.astype(np.float64), a * cfg.seed_len)
+    l = np.maximum(aln_len.astype(np.float64), 1.0)
+    identity = np.clip(1.0 - (l * a - score) / (a + b) / l, 0.0, 1.0)
+    tmp = np.where(l < 50.0, 1.0, np.log(50.0) / np.log(np.maximum(l, 2.0)))
+    tmp = tmp * identity * identity
+    mapq = (6.02 * (score - sub) / a * tmp * tmp + 0.499).astype(np.int64)
+    mapq -= (4.343 * np.log1p(sub_n.astype(np.float64)) + 0.499).astype(np.int64)
+    mapq = np.clip(mapq, 0, 60)
+    return np.where(sub >= score, 0, mapq).astype(np.int16)
+
 
 BITMAP_WORDS = 1 << 27  # 2^32 prefix bits
+
+
+
+def _expand_table(t: AlnTable, pf_idx: np.ndarray, read_ids: np.ndarray,
+                  lengths: np.ndarray, mate: int) -> AlnTable:
+    """Scatter a prefilter-subset AlnTable back to full batch rows; rows the
+    prefilter dropped are unmapped (contig -1), exactly what the full path
+    returns for reads with no seed hits."""
+    n = len(read_ids)
+    full = AlnTable(
+        read_id=read_ids.astype(np.int64),
+        mate=np.full(n, mate, np.int8),
+        contig=np.full(n, -1, np.int32),
+        pos=np.zeros(n, np.int64),
+        rend=np.zeros(n, np.int64),
+        strand=np.zeros(n, np.int8),
+        qstart=np.zeros(n, np.int32),
+        qend=np.zeros(n, np.int32),
+        score=np.zeros(n, np.int32),
+        mapq=np.zeros(n, np.int16),
+        rlen=lengths.astype(np.int32),
+        contig2=np.full(n, -1, np.int32),
+        pos2=np.zeros(n, np.int64),
+        rend2=np.zeros(n, np.int64),
+        strand2=np.zeros(n, np.int8),
+        qstart2=np.zeros(n, np.int32),
+        qend2=np.zeros(n, np.int32),
+        score2=np.zeros(n, np.int32),
+        has_alt=np.zeros(n, bool),
+    )
+    for f in AlnTable.__dataclass_fields__:
+        getattr(full, f)[pf_idx] = getattr(t, f)
+    return full
+
+
+def _revcomp_batch(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Reverse-complement padded reads, keeping padding at the tail."""
+    B, L = codes.shape
+    out = np.full_like(codes, 4)
+    comp = COMPLEMENT[codes]
+    idx = lengths[:, None] - 1 - np.arange(L)[None, :]
+    valid = idx >= 0
+    rows = np.broadcast_to(np.arange(B)[:, None], (B, L))
+    out[valid] = comp[rows[valid], idx[valid]]
+    return out
 
 
 def prefix_bitmap(index: SeedIndex, device) -> torch.Tensor:
@@ -98,17 +417,15 @@ def align_batch(subref: SubRef, index: SeedIndex, codes: np.ndarray,
     B, L = codes.shape
     C = cfg.max_candidates
 
-    # --- seed lookup on both strands (the JAX package's C++ library) ---
-    from localhgt_tpu.io import native
-
+    # --- seed lookup on both strands (the C++ library of io/csrc) ---
     hits = native.seed_hits(
         codes, lengths, index.sorted_hash, index.sorted_pos,
         cfg.seed_len, cfg.seed_stride, 32, threads=threads,
     )
     if hits is None:
         raise RuntimeError(
-            "seed lookup needs localhgt_tpu/io/csrc, built with g++ at first "
-            "use; the build failed")
+            "seed lookup needs localhgt_tpu_torch/io/csrc, built with g++ at "
+            "first use; the build failed")
     hr, ho, hp, hs = hits
     cand = []
     for strand in (0, 1):

@@ -19,11 +19,11 @@ import time
 import numpy as np
 import torch
 
-from localhgt_tpu.config import Config
-from localhgt_tpu.index import reference
-from localhgt_tpu.io import fastq
-from localhgt_tpu.pipeline import rawbkp
-from localhgt_tpu.utils import formats, hostmem, metrics, validate
+from localhgt_tpu_torch.config import Config
+from localhgt_tpu_torch.index import reference
+from localhgt_tpu_torch.io import fastq
+from localhgt_tpu_torch.pipeline import rawbkp
+from localhgt_tpu_torch.utils import formats, hostmem, metrics, validate
 from localhgt_tpu_torch.io import qc
 from localhgt_tpu_torch.pipeline import accbkp, align, extract
 
@@ -139,7 +139,10 @@ def detect_breakpoint(
     # host seeding. An empty index gives an empty bitmap, which keeps no
     # read, as host seeding would find no seed.
     bitmap = align.prefix_bitmap(index, device)
-    # the stage-A code cache feeds alignment directly (no FASTQ re-read)
+    # the stage-A code cache feeds alignment directly (no FASTQ re-read).
+    # As in the JAX package, cached batches keep their 1<<16 rows and so
+    # bypass the 1<<14 shrink above for a large sub-reference: kept as it
+    # is, the outputs must stay equal
     if cache is not None and any(
             e1.n != e2.n for e1, e2 in zip(cache[fq1], cache[fq2])):
         cache = None

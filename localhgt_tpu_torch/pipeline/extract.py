@@ -28,9 +28,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from localhgt_tpu.config import Config
-from localhgt_tpu.io import fasta, fastq
-from localhgt_tpu.utils import metrics
+from localhgt_tpu_torch.config import Config
+from localhgt_tpu_torch.io import fasta, fastq
+from localhgt_tpu_torch.utils import metrics
 from localhgt_tpu_torch.ops import count, encode, scan
 from localhgt_tpu_torch.pipeline import peaks as peaks_mod
 

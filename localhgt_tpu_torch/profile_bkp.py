@@ -49,8 +49,8 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from localhgt_tpu.sim.simulate import SimParams, simulate_sample
-    from localhgt_tpu.utils import metrics
+    from localhgt_tpu_torch.sim.simulate import SimParams, simulate_sample
+    from localhgt_tpu_torch.utils import metrics
     from localhgt_tpu_torch import cli
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])

@@ -17,7 +17,7 @@ import json
 
 import torch
 
-from localhgt_tpu.io import fastq
+from localhgt_tpu_torch.io import fastq
 from localhgt_tpu_torch.ops import count, encode
 from localhgt_tpu_torch.pipeline.extract import COUNT_BATCH_READS
 from localhgt_tpu_torch.utils.device import resolve

@@ -22,11 +22,26 @@ import csv
 
 import numpy as np
 
-from localhgt_tpu.io import fasta, fastq
-from localhgt_tpu.ops import coder
-from localhgt_tpu.tools.validate_events import reconstruct_junctions
-from localhgt_tpu_torch.ops import sw
+from localhgt_tpu_torch.io import fasta, fastq
+from localhgt_tpu_torch.ops import coder, sw
 from localhgt_tpu_torch.utils.device import resolve
+
+
+def reconstruct_junctions(contigs: fasta.Contigs, receptor: str, locus: int,
+                          donor: str, ds: int, de: int, reverse: bool,
+                          flank: int = 500):
+    """Return the two junction sequences (codes) of the predicted insertion:
+    [receptor_left + seg_start_side] and [seg_end_side + receptor_right]."""
+    rid = contigs.contig_id(receptor)
+    did = contigs.contig_id(donor)
+    seg = contigs.slice_codes(did, ds, de)
+    if reverse:
+        seg = coder.COMPLEMENT[seg][::-1]
+    left = contigs.slice_codes(rid, max(0, locus - flank), locus)
+    right = contigs.slice_codes(rid, locus, locus + flank)
+    j1 = np.concatenate([left, seg[:flank]])
+    j2 = np.concatenate([seg[-flank:], right])
+    return j1, j2
 
 
 def read_long_reads(path: str, max_reads: int) -> list:

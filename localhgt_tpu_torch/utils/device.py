@@ -1,8 +1,8 @@
 """Device selection and device-memory reporting for the port.
 
 Replaces localhgt_tpu/utils/metrics.py::device_memory_stats (which asks
-jax) with torch's allocator counters. Stage timing and counters are
-reused from localhgt_tpu.utils.metrics.
+jax) with torch's allocator counters. Stage timing and counters are in
+localhgt_tpu_torch/utils/metrics.py.
 """
 
 from __future__ import annotations
