@@ -11,13 +11,15 @@ Phases, each fatal on failure:
      equality, both timed with CUDA events and printed beside the kernel's
      bound (the larger of its bytes over 3.35 TB/s and its integer
      operations over SMs x 64 lanes x the SM clock): at the bkp path's
-     shapes, K1/K2 also at validate_events' wide reference (B=512,
+     shapes (K2 at every window width accbkp makes from 150-bp reads: 96,
+     128 and 160), K1/K2 also at validate_events' wide reference (B=512,
      M=N=1,000), K3 also at the main path's candidate density, at a ragged
      B and at a P that is no multiple of 4;
   4. simulate the `big` fixture (100 genomes x 1 Mbp, 50 HGTs, depth 5,
      seed 42) in a temporary directory;
   5. `bkp` at k=32 through the port's CLI entry on the card: every kernel
-     must launch, recall >= 0.90 and FDR <= 0.05 (+-50 bp);
+     must launch, recall >= 0.90 and FDR <= 0.05 (+-50 bp); logs the
+     (B, N) of K2's launches;
   6. `event` on the output folder through the port's CLI;
   7. `bkp --refine_fq 1` at k=32 after 2% of the pairs were rewritten to a
      short insert with an adapter tail: every such pair comes out trimmed
@@ -37,6 +39,7 @@ nothing of the JAX package `localhgt_tpu`.
 
 from __future__ import annotations
 
+import collections
 import csv
 import json
 import os
@@ -63,14 +66,26 @@ K1_TPU = "localhgt_tpu/ops/pallas_sw.py:208"
 K2_TPU = "localhgt_tpu/ops/pallas_sw.py:89"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64
-# Integer operations a cell of the recurrences of sw_align_plain and
-# sw_score_plain, a fused add-max (DPX) counted as one. K2: substitution
-# (compare, select), diagonal add-max-0, F add, H1 max, T0 add, prefix
-# max, E add-max, Mf add-max, best max = 10. K1 adds the row-best pack
-# (multiply-add) and, for the origins, start_O add, diagonal origin
-# (compare, select), and a select or compare-select behind each of the
-# five maxima (1 + 2 + 2 + 2 + 1) = 22.
-K1_OPS_PER_CELL, K2_OPS_PER_CELL = 22, 10
+# Integer operations a cell, over the 64 lanes of an SM's integer pipe.
+# K1, the recurrence of sw_align_plain with a fused add-max (DPX) counted
+# as one: substitution (compare, select), diagonal add-max-0, F add, H1
+# max, T0 add, prefix max, E add-max, Mf add-max, best max = 10; the
+# row-best pack (multiply-add) and, for the origins, start_O add, diagonal
+# origin (compare, select), and a select or compare-select behind each of
+# the five maxima (1 + 2 + 2 + 2 + 1) = 22.
+# K2, the score alone, needs no origin behind a maximum, so Hopper's
+# three-input forms apply; in the Gotoh form (header of csrc/sw.cu) a cell
+# is: substitution (one byte permute out of the column's table word),
+# H1 = max(diag + sub, F, 0) (one add-max-relu), H = max(H1, E), E
+# (add-max), F (add-max), and half a three-input max for the best = 5.5
+# permutes and maxima, which only the integer pipe runs. The cell's two
+# other adds (open + ext onto H1 and onto H) are left out: adds also run
+# on the FMA pipe as multiply-adds, and all 7.5 instructions at the 128
+# lanes a clock an SM's schedulers feed take less time than the 5.5 at 64.
+# (sw_score_plain's prefix-max form, with a compare and a select for the
+# substitution and two-input maxima, counts 10: the kernel runs in less
+# time than that count allows.)
+K1_OPS_PER_CELL, K2_OPS_PER_CELL = 22, 5.5
 # K3, counted from the data: 2G operations (compare, select-max) per
 # non-zero candidate and 3G (compare, increment or victim search and
 # insert) per position that has one
@@ -103,33 +118,12 @@ def int32_ops_per_s() -> float:
     return sms * INT32_LANES_PER_SM * mhz * 1e6
 
 
-def sw_inputs(rng, B: int, M: int, N: int, tie_heavy: bool):
-    """Reads planted in their reference windows with mutations; tie-heavy
-    inputs use a 2-letter alphabet and 1-5 bp insertions (ROADMAP F1)."""
-    alpha = 2 if tie_heavy else 4
-    q = rng.integers(0, alpha, (B, M)).astype(np.uint8)
-    r = rng.integers(0, alpha, (B, N)).astype(np.uint8)
-    for b in range(0, B, 2):
-        ins = int(rng.integers(1, 6))
-        cut = int(rng.integers(4, M - 4))
-        seg = np.concatenate([q[b, :cut],
-                              rng.integers(0, alpha, ins).astype(np.uint8),
-                              q[b, cut:]])
-        off = int(rng.integers(0, max(1, N - len(seg))))
-        seg = seg[: N - off]
-        mut = rng.random(len(seg)) < 0.02
-        seg[mut] = rng.integers(0, alpha, int(mut.sum()))
-        r[b, off:off + len(seg)] = seg
-    q[rng.random(q.shape) < 0.002] = 4
-    return q, r
-
-
 def check_kernels(dev) -> list:
     """Phase 3: the kernels' records, keyed by the wrapper and counter
     that phases 5-9 read their launches from."""
     import torch
 
-    from localhgt_tpu_torch import tune_vote
+    from localhgt_tpu_torch import tune_sw, tune_vote
     from localhgt_tpu_torch.ops import cuda_sw, cuda_vote
 
     rng = np.random.default_rng(2024)
@@ -166,35 +160,36 @@ def check_kernels(dev) -> list:
                 "bound_by": bound_by, "library_ms": None}
 
     def sw_pair(B, M, N, tie):
-        q, r = sw_inputs(rng, B, M, N, tie)
+        q, r = tune_sw.sw_inputs(rng, B, M, N, tie)
         return torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
 
-    def sw_both(B, M, N, tie, sfx, k2: bool):
-        """K1 (and K2 when asked) on one input; returns K1's record."""
+    def sw_both(B, M, N, tie, sfx, k1: bool, k2: bool) -> list:
+        """K1 and K2, as asked, on one input; returns their records."""
         qd, rd = sw_pair(B, M, N, tie)
         cells = B * M * N
-        rec = compare(
-            "sw_align" + sfx, K1_TPU, lambda: cuda_sw.sw_align(qd, rd),
-            lambda: cuda_sw.sw_align_plain(qd, rd), 10,
-            B * (M + N) + B * 20, cells * K1_OPS_PER_CELL)
+        recs = []
+        if k1:
+            recs.append(compare(
+                "sw_align" + sfx, K1_TPU, lambda: cuda_sw.sw_align(qd, rd),
+                lambda: cuda_sw.sw_align_plain(qd, rd), 10,
+                B * (M + N) + B * 20, cells * K1_OPS_PER_CELL))
         if k2:
-            compare("sw_score" + sfx, K2_TPU,
-                    lambda: cuda_sw.sw_score(qd, rd),
-                    lambda: cuda_sw.sw_score_plain(qd, rd), 10,
-                    B * (M + N) + B * 4, cells * K2_OPS_PER_CELL)
-        return rec
+            recs.append(compare(
+                "sw_score" + sfx, K2_TPU, lambda: cuda_sw.sw_score(qd, rd),
+                lambda: cuda_sw.sw_score_plain(qd, rd), 10,
+                B * (M + N) + B * 4, cells * K2_OPS_PER_CELL))
+        return recs
 
     # K1 at the align stage's shapes: 150-bp reads in a 192-wide batch,
     # reference window 192 + 2*32
-    out.append(sw_both(8192, 192, 256, False, "", False))
-    sw_both(8192, 192, 256, True, "_tie_heavy", False)
-    # K2 at the accbkp window-scan shapes (clip length padded to 32s)
-    qd, rd = sw_pair(8192, 160, 160, False)
-    out.append(compare(
-        "sw_score", K2_TPU, lambda: cuda_sw.sw_score(qd, rd),
-        lambda: cuda_sw.sw_score_plain(qd, rd), 10,
-        8192 * 320 + 8192 * 4, 8192 * 160 * 160 * K2_OPS_PER_CELL))
-    del qd, rd
+    out += sw_both(8192, 192, 256, False, "", True, False)
+    sw_both(8192, 192, 256, True, "_tie_heavy", True, False)
+    # K2 at the accbkp window-scan shapes (clip length padded to 32s):
+    # 160 is the record, 96 and 128 show what a narrower window costs
+    out += sw_both(8192, 160, 160, False, "", False, True)
+    sw_both(8192, 160, 160, True, "_tie_heavy", False, True)
+    sw_both(8192, 128, 128, False, "_n128", False, True)
+    sw_both(8192, 96, 96, False, "_n96", False, True)
 
     # K3 at the vote's shapes: 3 hash functions, 65,536 pairs, 2 x 128
     # k-mer starts, 8 slots. Dense seeded input (40 genomes, registers
@@ -222,11 +217,11 @@ def check_kernels(dev) -> list:
     del dense
     vote("vote_state_real_density", *tune_vote.real_like_inputs(dev))
     # K1 and K2 at validate_events' shape: 512 queries against junction
-    # windows 2 x 500 bp wide, the one-block-per-alignment variant. K2's
-    # wide variant runs on no path of the port; its check stays out of the
-    # kernels record, whose launches come from the paths.
-    out.append(sw_both(512, 1000, 1000, False, "_wide", True))
-    sw_both(512, 1000, 1000, True, "_wide_tie_heavy", True)
+    # windows 2 x 500 bp wide, the one-block-per-alignment variants. K2's
+    # runs on no path of the port (no caller of sw_score has N > 512), so
+    # its record carries 0 launches.
+    out += sw_both(512, 1000, 1000, False, "_wide", True, True)
+    sw_both(512, 1000, 1000, True, "_wide_tie_heavy", True, True)
     return out
 
 
@@ -237,7 +232,8 @@ def counters():
     return {"sw_align": (cuda_sw.sw_align, "launches"),
             "sw_score": (cuda_sw.sw_score, "launches"),
             "vote_state": (cuda_vote.vote_state, "launches"),
-            "sw_align_wide": (cuda_sw.sw_align, "wide_launches")}
+            "sw_align_wide": (cuda_sw.sw_align, "wide_launches"),
+            "sw_score_wide": (cuda_sw.sw_score, "wide_launches")}
 
 
 def drive(dev, fn):
@@ -245,8 +241,11 @@ def drive(dev, fn):
     (fn's result, {record name: launches}, wall seconds)."""
     import torch
 
+    from localhgt_tpu_torch.ops import cuda_sw
+
     for w, attr in counters().values():
         setattr(w, attr, 0)
+    cuda_sw.sw_score.shapes.clear()
     t = time.perf_counter()
     res = fn()
     torch.cuda.synchronize(dev)
@@ -259,6 +258,7 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
     that K1-K3 launched; returns the launch counts."""
     import torch
 
+    from localhgt_tpu_torch.ops import cuda_sw
     from localhgt_tpu_torch.sim import evaluate
     from localhgt_tpu_torch.sim.simulate import read_truth
     from localhgt_tpu_torch.utils import formats, metrics
@@ -298,6 +298,11 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
     log(f"{tag} device memory peak "
         f"{device_mod.memory_stats(dev)['device_peak_gib']:.2f} GiB")
     log(f"{tag} kernel launches: {json.dumps(launches)}")
+    by_bn = collections.Counter()
+    for (B, _, N), n in cuda_sw.sw_score.shapes.items():
+        by_bn[(B, N)] += n
+    log(f"{tag} K2 launches by (B, N): " + ", ".join(
+        f"({B}, {N}) x {n}" for (B, N), n in sorted(by_bn.items())))
     if min(launches[n] for n in ("sw_align", "sw_score", "vote_state")) <= 0:
         raise SystemExit(f"a kernel of the bkp path never launched: "
                          f"{launches}")

@@ -7,14 +7,25 @@ CUDA kernel of `csrc/sw.cu` for CUDA tensors and its plain torch version
 tensors) for CPU tensors, and raises on anything else.
 Each wrapper counts its kernel launches in `<wrapper>.launches`, and
 those of the wide-reference variant (N > NARROW_MAX_N) also in
-`<wrapper>.wide_launches`.
+`<wrapper>.wide_launches`; `sw_score.shapes` counts K2's launches by
+(B, M, N).
 
-What bounds the kernels on an H100 and how they are mapped is in the
-header of csrc/sw.cu.
+Both kernels are bound by the integer instructions they execute. K1 runs
+one warp per alignment row by row (one block per alignment above
+NARROW_MAX_N columns). K2 runs an anti-diagonal wavefront: a group of 8,
+16 or 32 lanes per alignment with as many columns a lane as make the
+group as wide as the window, lane l on query row t - l at step t, the
+recurrence in the Gotoh form on Hopper's fused add-max instructions, the
+substitution score by one byte permute out of a table word a column;
+above NARROW_MAX_N columns one block per alignment, a warp a stripe of
+256 columns, the stripes joined through a ring in shared memory without a
+block barrier. The header of csrc/sw.cu has the details and the cell's
+instruction count.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -23,19 +34,21 @@ from localhgt_tpu_torch import _build
 
 NEG = -(1 << 28)
 # the widest reference windows: csrc/sw.cu runs N <= NARROW_MAX_N on one
-# warp per alignment and NARROW_MAX_N < N <= MAX_N on one block of N/256
-# warps
+# warp (K2: one group of lanes) per alignment and NARROW_MAX_N < N <= MAX_N
+# on one block of N/256 warps
 NARROW_MAX_N = 512
 MAX_N = 4096
 MAX_CELLS = 1 << 31  # the origin register packs i*(N+1)+j into int32
 
 _P = ctypes.c_void_p
-_SIG = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+# both entry points: q, r, out, B, M, N, match, mismatch, open, ext, stream
+SIGNATURE = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
 
 
 def _lib():
-    return _build.load("sw", {"lht_sw_align": _SIG, "lht_sw_score": _SIG})
+    return _build.load("sw", {"lht_sw_align": SIGNATURE,
+                              "lht_sw_score": SIGNATURE})
 
 
 def _shift_down(x: torch.Tensor, s: int, fill: int) -> torch.Tensor:
@@ -77,11 +90,13 @@ def _check_inputs(q: torch.Tensor, r: torch.Tensor) -> None:
                          "overflow the int32 origin register")
 
 
-def _launch(fn: str, q, r, out, match, mismatch, gap_open, gap_ext):
+def launch(lib, fn: str, q, r, out, match, mismatch, gap_open, gap_ext):
+    """Launch entry point `fn` of a loaded build of csrc/sw.cu (the
+    package's own, or a variant that `tune_sw` built)."""
     q = q.contiguous()
     r = r.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(_lib(), fn)(
+    err = getattr(lib, fn)(
         q.data_ptr(), r.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1],
         r.shape[1], match, mismatch, gap_open, gap_ext, stream)
     _build.check(err, fn)
@@ -192,7 +207,7 @@ def sw_align(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-4,
     if q.device.type != "cuda":
         raise ValueError(f"sw_align: unsupported device {q.device}")
     out = torch.empty((q.shape[0], 5), dtype=torch.int32, device=q.device)
-    _launch("lht_sw_align", q, r, out, *kw.values())
+    launch(_lib(), "lht_sw_align", q, r, out, *kw.values())
     sw_align.launches += 1
     sw_align.wide_launches += int(r.shape[1] > NARROW_MAX_N)
     return out
@@ -209,11 +224,13 @@ def sw_score(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-2,
     if q.device.type != "cuda":
         raise ValueError(f"sw_score: unsupported device {q.device}")
     out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
-    _launch("lht_sw_score", q, r, out, *kw.values())
+    launch(_lib(), "lht_sw_score", q, r, out, *kw.values())
     sw_score.launches += 1
     sw_score.wide_launches += int(r.shape[1] > NARROW_MAX_N)
+    sw_score.shapes[(q.shape[0], q.shape[1], r.shape[1])] += 1
     return out
 
 
 sw_align.launches = sw_align.wide_launches = 0
 sw_score.launches = sw_score.wide_launches = 0
+sw_score.shapes = collections.Counter()

@@ -1,0 +1,224 @@
+"""Time kernel K2 (`lht_sw_score` of csrc/sw.cu) in its mappings on one card.
+
+    python -m localhgt_tpu_torch.tune_sw [--real] [--parent DIR]
+                                         [--sass out.txt] [--json out.json]
+
+Builds csrc/sw.cu once per variant with `-DLHT_SW_*` flags (lanes a group
+and columns a lane, wavefront or row-by-row scan, the substitution score
+by table or by compare and select, columns a lane of the wide mapping),
+all nvcc runs started together, and the package's own variant also with
+`-Xptxas -v` (registers and spills of every kernel). Every variant is held
+exactly against
+`sw_score_plain` and then timed with CUDA events at B=8,192 for M=N in 96,
+128, 160 and at B=512, M=N=1,000, on seeded reads planted in their windows.
+`--parent DIR` times `sw_score` of another checkout of the package (a
+subprocess in DIR) on the same inputs. `--real` also simulates the `big`
+fixture, runs `bkp` at k=32 and prints the (B, M, N) of every K2 launch.
+`--sass` writes `cuobjdump -sass` of the package's variant to a file. It
+prints the card's name and power limit. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from localhgt_tpu_torch.tune_vote import BIG, card_line, time_ms
+
+# name -> (nvcc -D flags, the widest N the variant takes or None, serves
+# narrow windows, serves wide windows). "package" is what the package builds.
+VARIANTS = {
+    "package": ((), None, True, True),
+    "compare_select": (("-DLHT_SW_TABLE=0",), None, True, True),
+    "g32_npl5": (("-DLHT_SW_G=32", "-DLHT_SW_NPL=5"), 160, True, False),
+    "g16_npl6": (("-DLHT_SW_G=16", "-DLHT_SW_NPL=6"), 96, True, False),
+    "g16_npl8": (("-DLHT_SW_G=16", "-DLHT_SW_NPL=8"), 128, True, False),
+    "g16_npl10": (("-DLHT_SW_G=16", "-DLHT_SW_NPL=10"), 160, True, False),
+    "g4_npl24": (("-DLHT_SW_G=4", "-DLHT_SW_NPL=24"), 96, True, False),
+    "g4_npl32": (("-DLHT_SW_G=4", "-DLHT_SW_NPL=32"), 128, True, False),
+    "g4_npl40": (("-DLHT_SW_G=4", "-DLHT_SW_NPL=40"), 160, True, False),
+    "scan_g16_npl10": (("-DLHT_SW_SCAN=1", "-DLHT_SW_G=16",
+                        "-DLHT_SW_NPL=10"), 160, True, False),
+    "wide_npl16": (("-DLHT_SW_WIDE_NPL=16",), None, False, True),
+}
+# (B, M, N): the accbkp window widths of 150-bp reads, and the widest
+# junction window of validate_events
+SHAPES = [(8192, 96, 96), (8192, 128, 128), (8192, 160, 160),
+          (512, 1000, 1000)]
+PARENT_SNIPPET = """
+import json, sys, torch
+sys.path.insert(0, {here!r})
+from localhgt_tpu_torch.tune_sw import SHAPES, device_inputs
+from localhgt_tpu_torch.tune_vote import time_ms
+sys.path.pop(0)
+for m in [m for m in sys.modules if m.startswith("localhgt_tpu_torch")]:
+    del sys.modules[m]
+from localhgt_tpu_torch.ops import cuda_sw
+dev = torch.device("cuda:0")
+out = {{}}
+for shape in SHAPES:
+    q, r = device_inputs(dev, *shape)
+    out[str(shape)] = time_ms(lambda: cuda_sw.sw_score(q, r), 20)
+print(json.dumps({{"parent_ms": out}}))
+"""
+
+
+def sw_inputs(rng, B: int, M: int, N: int, tie_heavy: bool):
+    """Reads planted in their reference windows with mutations; tie-heavy
+    inputs use a 2-letter alphabet and 1-5 bp insertions (ROADMAP F1)."""
+    alpha = 2 if tie_heavy else 4
+    q = rng.integers(0, alpha, (B, M)).astype(np.uint8)
+    r = rng.integers(0, alpha, (B, N)).astype(np.uint8)
+    for b in range(0, B, 2):
+        ins = int(rng.integers(1, 6))
+        cut = int(rng.integers(4, M - 4))
+        seg = np.concatenate([q[b, :cut],
+                              rng.integers(0, alpha, ins).astype(np.uint8),
+                              q[b, cut:]])
+        off = int(rng.integers(0, max(1, N - len(seg))))
+        seg = seg[: N - off]
+        mut = rng.random(len(seg)) < 0.02
+        seg[mut] = rng.integers(0, alpha, int(mut.sum()))
+        r[b, off:off + len(seg)] = seg
+    q[rng.random(q.shape) < 0.002] = 4
+    return q, r
+
+
+def device_inputs(dev, B: int, M: int, N: int, tie_heavy: bool = False):
+    q, r = sw_inputs(np.random.default_rng(B + M + N), B, M, N, tie_heavy)
+    return torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+
+
+def build_variants() -> tuple:
+    """({variant name: loaded library}, path of the package's variant); one
+    nvcc per variant, started together."""
+    from localhgt_tpu_torch import _build
+    from localhgt_tpu_torch.ops import cuda_sw
+
+    def one(name):
+        flags = VARIANTS[name][0]
+        if name == "package":
+            flags += ("-Xptxas", "-v")
+        path = _build.build("sw", flags)
+        lib = ctypes.CDLL(str(path))
+        lib.lht_sw_score.argtypes = cuda_sw.SIGNATURE
+        lib.lht_sw_score.restype = ctypes.c_int
+        return lib, path
+
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        built = dict(zip(VARIANTS, pool.map(one, VARIANTS)))
+    return {n: lib for n, (lib, _) in built.items()}, built["package"][1]
+
+
+def score(lib, q, r, params=(1, -2, -3, -1)):
+    from localhgt_tpu_torch.ops import cuda_sw
+
+    out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
+    cuda_sw.launch(lib, "lht_sw_score", q, r, out, *params)
+    return out
+
+
+def takes(name: str, N: int) -> bool:
+    from localhgt_tpu_torch.ops.cuda_sw import NARROW_MAX_N
+
+    _, max_n, narrow, wide = VARIANTS[name]
+    return (wide if N > NARROW_MAX_N else narrow) and (
+        max_n is None or N <= max_n)
+
+
+def real_shapes(dev) -> dict:
+    """Run `bkp` on `big` at k=32; {(B, M, N): K2 launches}."""
+    from localhgt_tpu_torch import cli
+    from localhgt_tpu_torch.ops import cuda_sw
+    from localhgt_tpu_torch.sim.simulate import SimParams, simulate_sample
+
+    work = tempfile.mkdtemp(prefix="lht_tune_")
+    try:
+        ref, fq1, fq2, _ = simulate_sample(work, "big", SimParams(**BIG))
+        cuda_sw.sw_score.shapes.clear()
+        rc = cli.main(["bkp", "-r", ref, "--fq1", fq1, "--fq2", fq2, "-s",
+                       "big", "-o", work, "-k", "32", "--device", str(dev)])
+        if rc != 0:
+            raise SystemExit(f"bkp exited {rc}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(cuda_sw.sw_score.shapes)
+
+
+def main(argv=None) -> int:
+    from localhgt_tpu_torch import _build
+    from localhgt_tpu_torch.ops import cuda_sw
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--real", action="store_true",
+                    help="also print the K2 launch shapes of bkp on big")
+    ap.add_argument("--parent", default="",
+                    help="another checkout whose sw_score is timed too")
+    ap.add_argument("--sass", default="",
+                    help="write cuobjdump -sass of the package's build here")
+    ap.add_argument("--json", default="", help="also write the times here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("tune_sw: CUDA is not available")
+    dev = torch.device("cuda:0")
+    print(card_line(), flush=True)
+    libs, package_so = build_variants()
+    if args.sass:
+        dump = Path(_build.nvcc_path()).with_name("cuobjdump")
+        res = subprocess.run([str(dump), "-sass", str(package_so)],
+                             capture_output=True, text=True, check=True)
+        Path(args.sass).write_text(res.stdout)
+
+    out = {"card": card_line(), "times_ms": {}}
+    for shape in SHAPES:
+        for tie in (True, False):
+            q, r = device_inputs(dev, *shape, tie_heavy=tie)
+            want = cuda_sw.sw_score_plain(q, r)
+            for name, lib in libs.items():
+                if not takes(name, shape[2]):
+                    continue
+                got = score(lib, q, r)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise SystemExit(f"variant {name} disagrees with the "
+                                     f"plain version at {shape}")
+        for name, lib in libs.items():  # timed on the 4-letter input
+            if takes(name, shape[2]):
+                ms = time_ms(lambda: score(lib, q, r), 20)
+                out["times_ms"].setdefault(str(shape), {})[name] = ms
+                print(f"[tune] {shape} {name}: {ms:.4f} ms", flush=True)
+    if args.parent:
+        res = subprocess.run(
+            [sys.executable, "-c", PARENT_SNIPPET.format(
+                here=str(Path(__file__).resolve().parent.parent))],
+            cwd=args.parent, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise SystemExit(f"parent timing failed:\n{res.stderr}")
+        out.update(json.loads(res.stdout.strip().splitlines()[-1]))
+        for shape, ms in out["parent_ms"].items():
+            print(f"[tune] {shape} parent's sw_score: {ms:.4f} ms",
+                  flush=True)
+    if args.real:
+        shapes = real_shapes(dev)
+        out["real_launch_shapes"] = {str(k): v for k, v in shapes.items()}
+        for shape, n in sorted(shapes.items()):
+            print(f"[real] K2 (B, M, N) = {shape}: {n} launches", flush=True)
+    print(json.dumps(out))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

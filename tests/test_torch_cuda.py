@@ -67,6 +67,66 @@ def test_sw_kernels_match_plain_wide_reference(dev, shape, alpha):
             cuda_sw.sw_score.wide_launches) == (n0[0] + 1, n0[1] + 1)
 
 
+SCORE_SHAPES = {
+    # every window width accbkp makes from 150-bp reads: each fits its
+    # (lanes a group, columns a lane) pair exactly
+    "n32": (777, 32, 32), "n64": (515, 64, 64), "n96": (300, 96, 96),
+    "n128": (259, 128, 128), "n160": (1030, 160, 160),
+    # N that is no multiple of the group's width: columns past N
+    "n100": (300, 40, 100), "n161": (129, 150, 161), "n300": (40, 90, 300),
+    "n511": (65, 100, 511), "n512": (33, 64, 512),
+    # the wide mapping and its stripe boundaries (256 columns a warp)
+    "n513": (33, 150, 513), "n768": (9, 300, 768), "n769": (9, 300, 769),
+    "n1000": (48, 1000, 1000), "n1025": (5, 200, 1025),
+    "n4096": (8, 256, 4096),
+    # more query rows than the ring between two stripes holds: it wraps,
+    # and the left stripe waits for the right one
+    "long_m_wide": (6, 1500, 600),
+    # more query rows than a staged chunk, and a query shorter than a group
+    "long_m_narrow": (70, 700, 96), "short_m": (50, 3, 160),
+    # B that is no multiple of the alignments a block holds, down to one
+    "ragged_b_g8": (13, 50, 32), "ragged_b_g16": (7, 60, 160),
+    "ragged_b_g32": (3, 60, 320), "one_alignment": (1, 20, 160),
+}
+# defaults of accbkp and of align, a free gap open, and parameters that do
+# not decay (the guarded kernels: columns past N are masked)
+SCORE_PARAMS = [(1, -2, -3, -1), (1, -4, -6, -1), (2, -3, 0, -2),
+                (2, 1, 1, 1), (3, -1, 2, -1)]
+
+
+@pytest.mark.parametrize("case", list(SCORE_SHAPES))
+@pytest.mark.parametrize("alpha", [2, 4])
+def test_sw_score_kernel_matches_plain(dev, case, alpha):
+    B, M, N = SCORE_SHAPES[case]
+    rng = np.random.default_rng(sum((B, M, N)) + alpha)
+    if M <= N:
+        q, r = _reads(rng, B, M, N, alpha)
+    else:  # the query is longer than the window: plant the window in it
+        r, q = _reads(rng, B, N, M, alpha)
+    r[rng.random(r.shape) < 0.01] = 4
+    qd, rd = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+    for params in SCORE_PARAMS:
+        n0 = cuda_sw.sw_score.launches, cuda_sw.sw_score.wide_launches
+        n_shape = cuda_sw.sw_score.shapes[(B, M, N)]
+        got = cuda_sw.sw_score(qd, rd, *params)
+        assert cuda_sw.sw_score.launches == n0[0] + 1
+        assert cuda_sw.sw_score.wide_launches == n0[1] + int(
+            N > cuda_sw.NARROW_MAX_N)
+        assert cuda_sw.sw_score.shapes[(B, M, N)] == n_shape + 1
+        torch.testing.assert_close(
+            got, cuda_sw.sw_score_plain(qd, rd, *params), rtol=0, atol=0)
+
+
+def test_sw_score_kernel_on_unalignable_and_identical_rows(dev):
+    """All-N rows score 0; a read equal to its window scores M * match."""
+    q = torch.randint(0, 4, (40, 160), dtype=torch.uint8, device=dev)
+    r = q.clone()
+    q[::2] = 4
+    got = cuda_sw.sw_score(q, r)
+    assert got[::2].abs().sum().item() == 0
+    assert (got[1::2] == 160).all()
+
+
 def test_sw_kernels_raise_above_the_widest_reference(dev):
     q = torch.zeros((2, 16), dtype=torch.uint8, device=dev)
     r = torch.zeros((2, cuda_sw.MAX_N + 1), dtype=torch.uint8, device=dev)
