@@ -14,13 +14,18 @@ Phases, each fatal on failure:
      shapes (K2 at every window width accbkp makes from 150-bp reads: 96,
      128 and 160), K1/K2 also at validate_events' wide reference (B=512,
      M=N=1,000), K3 also at the main path's candidate density, at a ragged
-     B and at a P that is no multiple of 4;
+     B, at a P that is no multiple of 4 and at the sharded vote's B;
   4. simulate the `big` fixture (100 genomes x 1 Mbp, 50 HGTs, depth 5,
      seed 42) in a temporary directory;
   5. `bkp` at k=32 through the port's CLI entry on the card: every kernel
      must launch, recall >= 0.90 and FDR <= 0.05 (+-50 bp); logs the
      (B, N) of K2's launches;
-  6. `event` on the output folder through the port's CLI;
+  6. `event` on the output folder through the port's CLI, then the
+     multi-device path on one card: `bkp --multi_chip on` through the CLI
+     (a mesh of one shard) and `detect_breakpoint` over a mesh of four
+     shards that all sit on the card; each must write phase 5's
+     interval.txt, bed and acc.csv byte for byte, K3 must launch once per
+     shard and vote batch and K1 at least as often as in phase 5;
   7. `bkp --refine_fq 1` at k=32 after 2% of the pairs were rewritten to a
      short insert with an adapter tail: every such pair comes out trimmed
      to its insert, the phase-5 gate holds and K1-K3 launch;
@@ -59,6 +64,8 @@ JAX_REFERENCE = {"intervals": 188, "subref_bp": 224_902, "final_bkps": 92,
                  "recall": 0.92}
 MIN_RECALL, MAX_FDR = 0.90, 0.05
 ADAPTER_FRAC = 0.02   # pairs rewritten to a short insert before QC
+KMER = 32             # `bkp -k` of every run here: the default config
+SHARDS = 4            # mesh entries on the one card in the sharded phase
 LONG_READ_LEN = 800   # validate_events: flank 500, min_span 200
 MIN_VALIDATED = 0.90
 SOURCE = "localhgt_tpu_torch/csrc/sw.cu"
@@ -66,13 +73,24 @@ K1_TPU = "localhgt_tpu/ops/pallas_sw.py:208"
 K2_TPU = "localhgt_tpu/ops/pallas_sw.py:89"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64
-# Integer operations a cell, over the 64 lanes of an SM's integer pipe.
-# K1, the recurrence of sw_align_plain with a fused add-max (DPX) counted
-# as one: substitution (compare, select), diagonal add-max-0, F add, H1
-# max, T0 add, prefix max, E add-max, Mf add-max, best max = 10; the
-# row-best pack (multiply-add) and, for the origins, start_O add, diagonal
-# origin (compare, select), and a select or compare-select behind each of
-# the five maxima (1 + 2 + 2 + 2 + 1) = 22.
+# Integer operations a cell, over the 64 lanes of an SM's integer pipe:
+# only what that pipe alone can issue (compares, selects, maxima, byte
+# permutes). Adds are left out: they also issue as multiply-adds on the
+# FMA pipe, beside the integer pipe.
+# K1 needs the winner of every maximum (its origin registers), so the
+# three-input forms do not serve it; a maximum with its winner is one
+# max-with-predicate and one select. In the Gotoh form a cell is:
+# substitution (one byte permute, as in K2) 1; the diagonal's origin
+# (compare H > 0, select the carried origin or the cell's index) 2;
+# H1 = max(diag + sub, 0, F) with its winner (add-max-relu,
+# max-with-predicate, select) 3; H = max(H1, E) 2; E's running maximum 2;
+# F's running maximum 2; the best cell (max-with-predicate, a select for
+# its origin and one for its packed position) 3 = 15. The cell's five adds
+# (diag + sub, the two gap extensions, open + ext onto H1, the cell index)
+# are not counted. The kernel as built issues 29.5 such instructions a
+# cell (its steady loop at 8 columns a lane: 98 compares, 86 selects, 47
+# maxima and 5 predicate ops in 311 instructions a row, `cuobjdump -sass`),
+# the scan over the lanes and the second pass of E's prefix among them.
 # K2, the score alone, needs no origin behind a maximum, so Hopper's
 # three-input forms apply; in the Gotoh form (header of csrc/sw.cu) a cell
 # is: substitution (one byte permute out of the column's table word),
@@ -85,7 +103,7 @@ INT32_LANES_PER_SM = 64
 # (sw_score_plain's prefix-max form, with a compare and a select for the
 # substitution and two-input maxima, counts 10: the kernel runs in less
 # time than that count allows.)
-K1_OPS_PER_CELL, K2_OPS_PER_CELL = 22, 5.5
+K1_OPS_PER_CELL, K2_OPS_PER_CELL = 15, 5.5
 # K3, counted from the data: 2G operations (compare, select-max) per
 # non-zero candidate and 3G (compare, increment or victim search and
 # insert) per position that has one
@@ -214,6 +232,9 @@ def check_kernels(dev) -> list:
          *(x[:, :37_765].contiguous() for x in dense))
     vote("vote_state_odd_p",
          *(x[:, :4_097, :203].contiguous() for x in dense))
+    # the sharded vote's launch: a 32,768-pair batch over SHARDS shards
+    vote("vote_state_shard_rows",
+         *(x[:, : 32_768 // SHARDS].contiguous() for x in dense))
     del dense
     vote("vote_state_real_density", *tune_vote.real_like_inputs(dev))
     # K1 and K2 at validate_events' shape: 512 queries against junction
@@ -271,7 +292,7 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     rc, launches, wall = drive(dev, lambda: cli.main(
         ["bkp", "-r", ref, "--fq1", fq1, "--fq2", fq2, "-s", "big",
-         "-o", outdir, "-k", "32", "--device", str(dev), *extra]))
+         "-o", outdir, "-k", str(KMER), "--device", str(dev), *extra]))
     if rc != 0:
         raise SystemExit(f"bkp exited {rc}")
     c = metrics.counters()
@@ -310,6 +331,70 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
         raise SystemExit(f"accuracy below the gate: recall {score.recall} "
                          f"(>= {MIN_RECALL}), FDR {score.fdr} (<= {MAX_FDR})")
     return launches
+
+
+def run_sharded(dev, ref, fq1, fq2, work: str, single: dict) -> None:
+    """`bkp` at k=32 over a device mesh, twice: `--multi_chip on` through
+    the CLI (one shard: what one card gives) and `detect_breakpoint` over
+    SHARDS entries that all name the card, so that table slices, stream
+    merging and the reductions run as on as many cards. Each run's files
+    must equal those of the single-device run in `work`; `single` holds
+    that run's launch counts."""
+    import torch
+
+    from localhgt_tpu_torch import cli
+    from localhgt_tpu_torch.parallel.mesh import make_flat_mesh
+    from localhgt_tpu_torch.pipeline import extract
+    from localhgt_tpu_torch.pipeline.bkp import detect_breakpoint
+    from localhgt_tpu_torch.utils import device as device_mod
+    from localhgt_tpu_torch.utils import metrics
+
+    args = ["bkp", "-r", ref, "--fq1", fq1, "--fq2", fq2, "-s", "big",
+            "-k", str(KMER), "--device", str(dev)]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(args))
+    mesh = make_flat_mesh([dev] * SHARDS)
+
+    def library_run(out):
+        detect_breakpoint(ref, fq1, fq2, "big", out, dev, cfg=cfg, mesh=mesh)
+        return 0
+
+    runs = {
+        "cli_on": (1, lambda out: cli.main(
+            args + ["-o", out, "--multi_chip", "on"])),
+        f"mesh_{SHARDS}": (SHARDS, library_run),
+    }
+    for name, (n, run) in runs.items():
+        out = os.path.join(work, f"sharded_{name}")
+        os.makedirs(out)
+        metrics.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rc, launches, wall = drive(dev, lambda: run(out))
+        if rc != 0:
+            raise SystemExit(f"sharded bkp ({name}) exited {rc}")
+        n_pairs = int(metrics.counters()["n_pairs"])
+        log(f"[sharded {name}] {n} shards on 1 distinct device, wall "
+            f"{wall:.1f} s, {n_pairs} pairs; stage walls (s): "
+            f"{json.dumps(metrics.stage_walls())}")
+        log(f"[sharded {name}] device memory peak "
+            f"{device_mod.memory_stats(dev)['device_peak_gib']:.2f} GiB; "
+            f"kernel launches: {json.dumps(launches)}")
+        for suffix in ("interval.txt", "interval.txt.bed", "acc.csv"):
+            with open(os.path.join(out, f"big.{suffix}"), "rb") as f, \
+                    open(os.path.join(work, f"big.{suffix}"), "rb") as g:
+                if f.read() != g.read():
+                    raise SystemExit(f"sharded bkp ({name}): big.{suffix} "
+                                     "differs from the single-device run's")
+        batches = -(-n_pairs // extract.VOTE_BATCH_READS)
+        if launches["vote_state"] != n * batches:
+            raise SystemExit(
+                f"sharded bkp ({name}): K3 launched "
+                f"{launches['vote_state']} times, not once for each of {n} "
+                f"shards and {batches} vote batches")
+        if launches["sw_align"] < single["sw_align"]:
+            raise SystemExit(
+                f"sharded bkp ({name}): K1 launched {launches['sw_align']} "
+                f"times, the single-device run {single['sw_align']}")
+        shutil.rmtree(out)
 
 
 def plant_adapters(fq1: str, fq2: str, frac: float, seed: int) -> dict:
@@ -519,6 +604,7 @@ def run_pipeline(dev, kernels: list) -> None:
             raise SystemExit("event failed")
         with open(ev) as f:
             log(f"[event] {sum(1 for _ in f) - 1} events")
+        run_sharded(dev, ref, fq1, fq2, work, launches)
 
         t = time.perf_counter()
         planted = plant_adapters(fq1, fq2, ADAPTER_FRAC, 3)

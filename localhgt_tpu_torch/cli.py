@@ -10,7 +10,8 @@ Options, defaults and help text are those of localhgt_tpu/cli.py, plus
 `--device` on `bkp` and `analyze` (default cuda; raises when CUDA is
 absent), which `bkp` and the device analyses (`microhomology`,
 `mechanism`, `classifier`, `lodo`) use. `event` and the other analyses are
-host-only. Not ported: `--multi_chip on` (see ROADMAP.md).
+host-only. `--multi_chip on` runs extraction over a mesh of every
+visible CUDA device (one shard on the CPU with `--device cpu`).
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="run extraction over all visible chips "
                         "(auto: when >1 device; intervals are identical to "
-                        "single-device). 'on' is not ported yet")
+                        "single-device)")
     b.add_argument("--count_ckpt", default="",
                    help="directory for stage-A count-table checkpoints "
                    "(resume the k-mer counting pass across runs)")
@@ -136,21 +137,6 @@ def config_from_args(a) -> Config:
                        threads=a.t, count_ckpt=getattr(a, "count_ckpt", ""))
 
 
-def config_from_args(a) -> Config:
-    cfg = Config()
-    kmer = dataclasses.replace(
-        cfg.kmer, k=a.k, coder_num=a.e, seed=a.seed, sample=a.sample_bp
-    )
-    scan = dataclasses.replace(
-        cfg.scan, hit_ratio=a.hit_ratio, match_ratio=a.match_ratio,
-        max_peak=a.max_peak,
-    )
-    align = dataclasses.replace(cfg.align, min_mapq=a.q)
-    bkp = dataclasses.replace(cfg.bkp, mapq_min=a.q, keep_xa=a.a)
-    return cfg.replace(kmer=kmer, scan=scan, align=align, bkp=bkp,
-                       threads=a.t, count_ckpt=getattr(a, "count_ckpt", ""))
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
@@ -166,10 +152,6 @@ def main(argv=None) -> int:
 
 def _dispatch(args) -> int:
     if args.command == "bkp":
-        if args.multi_chip == "on":
-            raise NotImplementedError(
-                "--multi_chip on is not ported to localhgt_tpu_torch yet; "
-                "see ROADMAP.md queue 1")
         from localhgt_tpu_torch.pipeline.bkp import detect_breakpoint
         from localhgt_tpu_torch.utils import device
 
@@ -180,6 +162,8 @@ def _dispatch(args) -> int:
             use_kmer=bool(args.use_kmer),
             read_info=bool(args.read_info),
             refine_fq=bool(args.refine_fq),
+            mesh={"auto": "auto", "on": "force",
+                  "off": None}[args.multi_chip],
         )
         return 0
     if args.command == "event":

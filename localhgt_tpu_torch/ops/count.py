@@ -98,9 +98,11 @@ def clip_tables(tables, cap: int = 3) -> None:
         t.clamp_(max=cap)
 
 
-def clip_every_batches(cap: int = 3) -> int:
-    """Unclipped batches an int8 table absorbs: per-batch deltas are <= cap."""
-    return max(1, 120 // max(cap, 1) - 2)
+def clip_every_batches(cap: int = 3, streams: int = 1) -> int:
+    """Unclipped batches an int8 table absorbs: a batch adds at most `cap`
+    per rank-capped stream (`streams`: one, or one per shard of the
+    multi-device count, whose int8 headroom shrinks that many times)."""
+    return max(1, 120 // max(streams * cap, 1) - 2)
 
 
 def tables_from_jax(arrays, k: int, device) -> list:

@@ -96,9 +96,11 @@ def launch(lib, fn: str, q, r, out, match, mismatch, gap_open, gap_ext):
     q = q.contiguous()
     r = r.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, fn)(
-        q.data_ptr(), r.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1],
-        r.shape[1], match, mismatch, gap_open, gap_ext, stream)
+    with torch.cuda.device(q.device):  # a launch goes to the current device
+        err = getattr(lib, fn)(
+            q.data_ptr(), r.data_ptr(), out.data_ptr(), q.shape[0],
+            q.shape[1], r.shape[1], match, mismatch, gap_open, gap_ext,
+            stream)
     _build.check(err, fn)
 
 

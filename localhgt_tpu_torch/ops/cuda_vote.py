@@ -112,10 +112,11 @@ def launch(lib, genome: torch.Tensor, pk: torch.Tensor):
     oc = torch.empty_like(og)
     op = torch.empty_like(og)
     oh = torch.empty(B, dtype=torch.int32, device=dev)
-    err = lib.lht_vote_state(
-        cg.data_ptr(), cp.data_ptr(), og.data_ptr(), oc.data_ptr(),
-        op.data_ptr(), oh.data_ptr(), B, P, C, KERNEL_SLOTS,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # a launch goes to the current device
+        err = lib.lht_vote_state(
+            cg.data_ptr(), cp.data_ptr(), og.data_ptr(), oc.data_ptr(),
+            op.data_ptr(), oh.data_ptr(), B, P, C, KERNEL_SLOTS,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "lht_vote_state")
     return og, oc, op, oh
 

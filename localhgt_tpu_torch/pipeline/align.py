@@ -394,14 +394,15 @@ def seed_prefilter_device(codes: torch.Tensor, lengths: torch.Tensor,
 def align_batch(subref: SubRef, index: SeedIndex, codes: np.ndarray,
                 lengths: np.ndarray, read_ids: np.ndarray, mate: int,
                 cfg: AlignConfig, device, pf_mask: np.ndarray,
-                threads: int = 8) -> AlnTable:
+                threads: int = 8, mesh=None) -> AlnTable:
     """Align one batch of single-end reads; returns per-read records
     (unmapped reads included with contig=-1 so pairing stays positional).
 
     `pf_mask`: the seed-prefilter result for this batch (bool [B], from
     seed_prefilter_device); only the reads it keeps are seeded. The host
     logic is the reference's line for line; the SW extension is kernel K1
-    on `device`."""
+    on `device`, or with `mesh` (parallel.mesh.DeviceMesh) data-parallel
+    over the mesh's shards."""
     full_ids, full_lengths = read_ids, lengths
     pf_idx = np.flatnonzero(pf_mask)
     real = lengths > 0
@@ -480,7 +481,7 @@ def align_batch(subref: SubRef, index: SeedIndex, codes: np.ndarray,
                 codes[b_idx[rows1]], lengths[b_idx[rows1]]
             )
         out = swmod.sw_align_tiled(
-            q_sel, ref_w, device,
+            q_sel, ref_w, device, mesh=mesh,
             match=cfg.match, mismatch=cfg.mismatch,
             gap_open=cfg.gap_open, gap_ext=cfg.gap_extend,
         )

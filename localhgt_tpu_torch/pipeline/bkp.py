@@ -1,12 +1,14 @@
-"""End-to-end HGT breakpoint detection (`localhgt bkp`) on one device.
+"""End-to-end HGT breakpoint detection (`localhgt bkp`).
 
 Port of localhgt_tpu/pipeline/bkp.py::detect_breakpoint: read QC (with
 refine_fq: adapter trimming and fastp's filter, io/qc.py) -> extract (k-mer
 stage, unless use_kmer=0) -> sub-reference + seed index -> seed-and-extend
 alignment (kernel K1) -> insert size -> raw junctions -> split-read SW
 refinement (kernel K2) -> dedup -> <sample>.acc.csv. The k-mer stage runs
-kernel K3. Every device step runs on the explicit `device`; there is no
-multi-device mesh and no dispatch lookahead.
+kernel K3. Every device step runs on the explicit `device`, or, with a
+mesh, extraction and the K1 extension run over the mesh's shards
+(parallel/extract_sharded.py, ops.sw.sw_align_sharded). There is no
+dispatch lookahead.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from localhgt_tpu_torch.io import fastq
 from localhgt_tpu_torch.pipeline import rawbkp
 from localhgt_tpu_torch.utils import formats, hostmem, metrics, validate
 from localhgt_tpu_torch.io import qc
+from localhgt_tpu_torch.parallel import extract_sharded
+from localhgt_tpu_torch.parallel.mesh import make_flat_mesh
 from localhgt_tpu_torch.pipeline import accbkp, align, extract
 
 log = logging.getLogger("localhgt_tpu_torch.bkp")
@@ -68,9 +72,16 @@ def detect_breakpoint(
     use_kmer: bool = True,
     read_info: bool = True,
     refine_fq: bool = False,
+    mesh=None,
 ) -> str:
     """Run breakpoint detection on `device`; returns the path of
-    <sample>.acc.csv."""
+    <sample>.acc.csv.
+
+    `mesh`: a parallel.mesh.DeviceMesh to run extraction and the K1
+    extension over its shards (outputs identical to single-device);
+    "force" for the mesh over every visible CUDA device, or over one
+    shard on `device` when that is the CPU; "auto" for that mesh when
+    more than one CUDA device is visible. None = single device."""
     device = torch.device(device)
     cfg = cfg or Config()
     validate.check_bkp_inputs(ref_path, fq1, fq2, outdir)
@@ -96,9 +107,23 @@ def detect_breakpoint(
     contigs = reference.build(ref_path)
     log.info("reference: %d contigs, %d bp", contigs.n, len(contigs.codes))
 
+    if mesh in ("auto", "force"):
+        want = mesh == "force" or (device.type == "cuda"
+                                   and torch.cuda.device_count() > 1)
+        mesh = None
+        if want:
+            mesh = make_flat_mesh(None if device.type == "cuda"
+                                  else [device])
+    if mesh is not None:
+        log.info("multi-device extraction: %s", mesh.describe())
+
     cache = None
     if use_kmer:
-        res = extract.extract(fq1, fq2, contigs, cfg, device)
+        if mesh is not None:
+            res = extract_sharded.extract_sharded(fq1, fq2, contigs, cfg,
+                                                  mesh)
+        else:
+            res = extract.extract(fq1, fq2, contigs, cfg, device)
         intervals, cache = res.intervals, res.cache
         with open(os.path.join(outdir, f"{sample}.interval.txt"), "w") as f:
             for cid, s, e in intervals:
@@ -106,7 +131,7 @@ def detect_breakpoint(
         with open(os.path.join(outdir, f"{sample}.interval.txt.bed"),
                   "w") as f:
             f.write("\n".join(res.bed) + ("\n" if res.bed else ""))
-        del res  # frees the direct map before alignment
+        del res  # frees the peak map before alignment
         log.info("extraction: %d intervals (%.1fs)", len(intervals),
                  time.time() - t0)
     else:
@@ -183,7 +208,7 @@ def detect_breakpoint(
                 cd.to(device), ld.to(device), bitmap).cpu().numpy()
             t = align.align_batch(
                 subref, index, cn, ln, ids, mate, cfg.align, device, pfm,
-                threads=cfg.threads)
+                threads=cfg.threads, mesh=mesh)
             batch_t[mate] = t
             # retain code rows ONLY for split candidates (contig2 >= 0)
             keep = np.flatnonzero(t.contig2 >= 0)

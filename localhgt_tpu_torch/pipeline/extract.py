@@ -360,6 +360,16 @@ def extract(fq1: str, fq2: str, contigs: fasta.Contigs, cfg: Config,
                            cache=code_cache)
     log.info("vote pass in %.1fs", time.time() - t)
 
+    intervals, bed, n_kept = intervals_from_votes(votes, pset, contigs, cfg)
+    log.info("kept %d peaks -> %d intervals", n_kept, len(intervals))
+    return ExtractResult(intervals, bed, pset, votes, n_pairs, ratio,
+                         cache=code_cache)
+
+
+def intervals_from_votes(votes: np.ndarray, pset, contigs: fasta.Contigs,
+                         cfg: Config):
+    """Peaks with >= MIN_READS votes -> merged intervals and their bed
+    lines; returns (intervals, bed, number of kept peaks)."""
     kept = np.flatnonzero(votes[1:] >= cfg.scan.min_reads) + 1
     contig_lens = {cid: contigs.length_of(cid)
                    for cid in range(1, contigs.n + 1)}
@@ -373,9 +383,7 @@ def extract(fq1: str, fq2: str, contigs: fasta.Contigs, cfg: Config,
             continue
         final.append((cid, s, e))
         bed.append(f"{contigs.name_of(cid)}:{s}-{e}")
-    log.info("kept %d peaks -> %d intervals", len(kept), len(final))
-    return ExtractResult(final, bed, pset, votes, n_pairs, ratio,
-                         cache=code_cache)
+    return final, bed, len(kept)
 
 
 def _sync(device) -> None:

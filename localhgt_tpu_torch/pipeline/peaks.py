@@ -1,12 +1,16 @@
-"""Candidate peaks, the direct hash -> peak-id map, and the split-read vote.
+"""Candidate peaks, the two hash -> peak-id maps, and the split-read vote.
 
-Port of the direct-map path of localhgt_tpu/pipeline/peaks.py (the
-machinery is described there). The map is a device int32 [2^k] tensor for
-every k; at k=32 that is 16 GiB, which an 80 GB card holds. The JAX
-package switches to its RankMap above 4 GiB; the RankMap stores the max
-peak id per hash, as the direct map's scatter-max does, so lookups give
-the same ids. The sequential greedy register scan of the vote runs in
-kernel K3 (ops.cuda_vote).
+Port of the direct-map and RankMap paths of localhgt_tpu/pipeline/peaks.py
+(the machinery is described there). On one device the map is an int32
+[2^k] tensor for every k; at k=32 that is 16 GiB, which an 80 GB card
+holds. The multi-device extraction (parallel/extract_sharded.py) uses the
+RankMap instead: a presence bitmap with prefix popcounts plus the peak
+ids in hash order, small enough for a copy on every device. Both maps
+store the max peak id per hash, so lookups give the same ids.
+`rankmap_from_jax` / `rankmap_to_jax` carry the RankMap's two arrays to
+and from the JAX package, whose layout they share element for element.
+The sequential greedy register scan of the vote runs in kernel K3
+(ops.cuda_vote).
 """
 
 from __future__ import annotations
@@ -20,6 +24,28 @@ from localhgt_tpu_torch.ops import count as count_mod
 from localhgt_tpu_torch.ops import cuda_vote, encode
 
 MAP_BUILD_CHUNK = 1 << 22  # reference positions hashed per map-build step
+PAIR_CACHE_LIMIT = 2 << 30  # bytes of (hash, pid) stream kept between passes
+POPCOUNT_CHUNK = 1 << 24    # bit-words per popcount step of the build
+
+
+@dataclass
+class RankMap:
+    """Succinct hash -> peak-id map (localhgt_tpu/pipeline/peaks.py
+    ::RankMap, same arrays):
+
+      wp:   int32 [2 * 2^(k-5)] interleaved (bit-word, exclusive-prefix
+            popcount) pairs. Word i covers hashes [32i, 32i+32): bit
+            (h & 31) of wp[2i] is set iff hash h is stored (bit 31 is the
+            int32 sign); wp[2i+1] counts the stored hashes < 32i.
+      pids: int32 [>= Ku] peak id of each stored hash in ascending hash
+            order, zero-padded to `_pids_cap(Ku)`.
+
+    Duplicate (hash, pid) pairs of the build stream resolve to the MAX
+    pid, as the direct map's scatter-max does."""
+
+    wp: torch.Tensor
+    pids: torch.Tensor
+    k: int = 0
 
 
 @dataclass
@@ -28,7 +54,10 @@ class PeakSet:
 
     contig: np.ndarray           # int32 [P+1] contig id of each peak
     pos: np.ndarray              # int64 [P+1] representative position
-    direct_map: torch.Tensor     # int32 [2^k] hash -> peak id (0 = none)
+    # exactly one of the two maps is set (rmap may be None with it when no
+    # k-mer was stored)
+    direct_map: torch.Tensor | None = None  # int32 [2^k] hash -> peak id
+    rmap: RankMap | None = None             # the multi-device path's map
 
     @property
     def n(self) -> int:
@@ -107,10 +136,144 @@ def build_direct_map(per_contig, contigs, tables, masks, k: int,
     return PeakSet(contig=pcontig, pos=ppos, direct_map=direct_map)
 
 
-def vote_candidates(codes, lengths, masks, direct_map, k: int, kw: int):
+# --------------------------------------------------------------------------
+# RankMap build and lookup
+# --------------------------------------------------------------------------
+
+
+def _popcount(w: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of 32-bit values held in int64 (torch has no
+    population count; exact: byte sums <= 32 < 256)."""
+    x = w - ((w >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & encode.U32) >> 24
+
+
+def _pids_cap(n: int) -> int:
+    return max(128, -(-n // 128) * 128)
+
+
+def _bit32(bit: torch.Tensor) -> torch.Tensor:
+    """1 << bit as an int32 (bit 31 is the sign: -2^31)."""
+    val = 1 << bit
+    return torch.where(val >= 1 << 31, val - (1 << 32), val).to(torch.int32)
+
+
+def _word_add(w: torch.Tensor, keys: torch.Tensor) -> None:
+    """OR the keys' presence bits into the int32 bit-words `w` in place.
+    torch has no scatter-OR; a scatter-ADD is an exact OR when every added
+    bit is distinct and not yet set: the batch's keys are made unique (key
+    <-> (word, bit) is a bijection) and bits that an earlier batch set are
+    filtered against the current words. Distinct bits of one word add
+    without a carry."""
+    kk = torch.unique(keys)
+    wi = kk >> 5
+    bit = kk & 31
+    absent = ((w[wi].long() >> bit) & 1) == 0
+    w.index_add_(0, wi[absent], _bit32(bit[absent]))
+
+
+def _words_to_wp(w: torch.Tensor):
+    """Bit-words int32 [W] -> (wp int32 [2W], stored k-mers). The prefix
+    is summed in int64 and refused at 2^31, where the int32 interleave
+    would wrap."""
+    W = w.shape[0]
+    pc = torch.empty(W, dtype=torch.int64, device=w.device)
+    for lo in range(0, W, POPCOUNT_CHUNK):
+        part = w[lo : lo + POPCOUNT_CHUNK].long() & encode.U32
+        pc[lo : lo + POPCOUNT_CHUNK] = _popcount(part)
+    pref = torch.cumsum(pc, 0)
+    ku = int(pref[-1])
+    if ku >= 1 << 31:
+        raise ValueError("rank map exceeds 2^31 stored k-mers; raise "
+                         "--max_peak filtering or use k <= 30")
+    pref -= pc
+    wp = torch.empty(2 * W, dtype=torch.int32, device=w.device)
+    wp[0::2] = w
+    wp[1::2] = pref.to(torch.int32)
+    return wp, ku
+
+
+def _rank(wp: torch.Tensor, h: torch.Tensor):
+    """(present bool, rank int64) of int64 hashes h in the bitmap: the
+    word and its prefix are neighbours, so one gather of a pair reads
+    both."""
+    pair = wp.view(-1, 2)[h >> 5].long()
+    word = pair[..., 0] & encode.U32
+    bit = h & 31
+    present = ((word >> bit) & 1) != 0
+    below = _popcount(word & ((1 << bit) - 1))
+    return present, pair[..., 1] + below
+
+
+def rank_lookup(wp: torch.Tensor, pids: torch.Tensor,
+                h: torch.Tensor) -> torch.Tensor:
+    """Peak id int32 per int64 hash (0 where absent); see RankMap. A miss
+    gathers row 0 of `pids` and is masked to 0 afterwards."""
+    present, rank = _rank(wp, h)
+    rank = torch.where(present, rank, 0).clamp_(max=pids.shape[0] - 1)
+    return torch.where(present, pids[rank], 0)
+
+
+def build_rankmap(pair_batches, k: int, device,
+                  cache_limit: int = PAIR_CACHE_LIMIT) -> RankMap | None:
+    """RankMap on `device` from a (hash, pid) pair stream; None when the
+    stream stores nothing.
+
+    pair_batches: zero-argument callable returning an iterator of (keys
+    int64 [T], pids int32 [T]) tensors on `device`; keys need not be
+    unique and never hold 0 or 0xFFFFFFFF (`_member_keys` drops both).
+    The stream is read twice: pass 1 sets the presence bits, one
+    popcount and cumulative sum turn the words into (word, prefix) pairs,
+    pass 2 scatter-maxes each pid at its key's rank. The batches are kept
+    between the passes while they fit `cache_limit` bytes; a longer
+    stream is asked for again."""
+    cached: list | None = []
+    cache_bytes = 0
+    w = torch.zeros(1 << max(k - 5, 0), dtype=torch.int32, device=device)
+    for keys, vals in pair_batches():
+        _word_add(w, keys)
+        if cached is not None:
+            cached.append((keys, vals))
+            cache_bytes += keys.numel() * 12
+            if cache_bytes > cache_limit:
+                cached = None
+    wp, ku = _words_to_wp(w)
+    del w
+    if ku == 0:
+        return None
+    pids = torch.zeros(_pids_cap(ku), dtype=torch.int32, device=device)
+    for keys, vals in (cached if cached is not None else pair_batches()):
+        pids.scatter_reduce_(0, _rank(wp, keys)[1], vals, reduce="amax")
+    return RankMap(wp=wp, pids=pids, k=k)
+
+
+def rankmap_from_jax(wp, pids, k: int, device) -> RankMap:
+    """The JAX package's RankMap arrays (host int32 arrays, e.g. of
+    `build_rankmap_host`) as a RankMap on `device`; the layouts are equal."""
+    wp = np.ascontiguousarray(wp)
+    pids = np.ascontiguousarray(pids)
+    if wp.dtype != np.int32 or pids.dtype != np.int32:
+        raise ValueError(f"rank map: want int32 arrays, got {wp.dtype} and "
+                         f"{pids.dtype}")
+    if wp.shape != (2 << max(k - 5, 0),):
+        raise ValueError(f"rank map: k={k} needs {2 << max(k - 5, 0)} "
+                         f"interleaved words, got {wp.shape}")
+    return RankMap(wp=torch.from_numpy(wp).to(device),
+                   pids=torch.from_numpy(pids).to(device), k=k)
+
+
+def rankmap_to_jax(rmap: RankMap):
+    """(wp, pids) int32 numpy arrays in the JAX package's layout."""
+    return rmap.wp.cpu().numpy(), rmap.pids.cpu().numpy()
+
+
+def _candidates(codes, lengths, masks, lookup, k: int, kw: int):
     """Peak-id candidates int32 [C, B, kw] of one mate batch: hash, crop
-    the start axis to kw, and gather the direct map. Hash 0 is excluded,
-    as on every lookup path of the reference."""
+    the start axis to kw (0 = no crop), and look the hashes up (`lookup`:
+    int64 hashes -> int32 peak ids). Hash 0 is excluded, as on every
+    lookup path of the reference."""
     h, v = encode.canonical_hashes(codes, masks, k)    # [C, B, L]
     L = codes.shape[-1]
     if kw and kw < L:
@@ -120,7 +283,19 @@ def vote_candidates(codes, lengths, masks, direct_map, k: int, kw: int):
     inwin = (torch.arange(L, device=codes.device)[None, :]
              <= (lengths[:, None].long() - k))
     ok = (v & inwin)[None] & (h != 0)
-    return torch.where(ok, direct_map[h], 0)
+    return torch.where(ok, lookup(h), 0)
+
+
+def vote_candidates(codes, lengths, masks, direct_map, k: int, kw: int):
+    """`_candidates` through the direct map."""
+    return _candidates(codes, lengths, masks, direct_map.__getitem__, k, kw)
+
+
+def rank_vote_candidates(codes, lengths, masks, rmap: RankMap, k: int,
+                         kw: int = 0):
+    """`_candidates` through a RankMap on the codes' device."""
+    return _candidates(codes, lengths, masks,
+                       lambda h: rank_lookup(rmap.wp, rmap.pids, h), k, kw)
 
 
 def vote_core(peak_filter, pk1, pk2, peak_contig, accept,

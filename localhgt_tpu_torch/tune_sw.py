@@ -2,6 +2,7 @@
 
     python -m localhgt_tpu_torch.tune_sw [--real] [--parent DIR]
                                          [--sass out.txt] [--json out.json]
+    python -m localhgt_tpu_torch.tune_sw --count out.txt      # no card
 
 Builds csrc/sw.cu once per variant with `-DLHT_SW_*` flags (lanes a group
 and columns a lane, wavefront or row-by-row scan, the substitution score
@@ -14,8 +15,11 @@ exactly against
 `--parent DIR` times `sw_score` of another checkout of the package (a
 subprocess in DIR) on the same inputs. `--real` also simulates the `big`
 fixture, runs `bkp` at k=32 and prints the (B, M, N) of every K2 launch.
-`--sass` writes `cuobjdump -sass` of the package's variant to a file. It
-prints the card's name and power limit. Imports nothing of JAX.
+`--sass` writes `cuobjdump -sass` of the package's variant to a file and
+prints, for K1's kernels, the opcodes of every loop (what the bound's
+count of integer-pipe instructions a cell is read from); `--count` prints
+the same from such a file and needs no card. It prints the card's name and
+power limit. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -155,6 +159,44 @@ def real_shapes(dev) -> dict:
     return dict(cuda_sw.sw_score.shapes)
 
 
+# SASS opcodes that only the SM's 64-lane integer pipe issues
+INT_PIPE_ONLY = ("ISETP", "SEL", "VIMNMX", "VIADDMNMX", "PLOP3", "LOP3",
+                 "PRMT", "IMNMX", "SHF", "LEA")
+K1_KERNELS = ("sw_align_kernelILi8E", "sw_align_wide_kernel")
+
+
+def loop_opcodes(sass: str, kernel: str) -> list:
+    """[(start, end, {opcode: count})] of every loop (a backward branch
+    and what lies between it and its target) of the first function of a
+    `cuobjdump -sass` text whose mangled name holds `kernel`."""
+    import collections
+    import re
+
+    text = sass.split("Function : ")
+    body = next(t for t in text[1:] if kernel in t.split("\n", 1)[0])
+    ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+        r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)[^;]*;", body)]
+    targets = {int(m.group(1), 16): int(m.group(2), 16) for m in re.finditer(
+        r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\d+\s+)?BRA[^;]*?0x([0-9a-f]+)",
+        body)}
+    loops = []
+    for at, to in sorted(targets.items()):
+        if to < at:
+            ops = collections.Counter(
+                op.split(".")[0] for a, op in ins if to <= a <= at)
+            loops.append((to, at, dict(ops.most_common())))
+    return loops
+
+
+def print_k1_loops(sass: str) -> None:
+    for kernel in K1_KERNELS:
+        for to, at, ops in loop_opcodes(sass, kernel):
+            only = sum(n for op, n in ops.items() if op in INT_PIPE_ONLY)
+            print(f"[sass] {kernel} loop {to:#x}-{at:#x}: "
+                  f"{sum(ops.values())} instructions, {only} of them on the "
+                  f"integer pipe alone: {json.dumps(ops)}", flush=True)
+
+
 def main(argv=None) -> int:
     from localhgt_tpu_torch import _build
     from localhgt_tpu_torch.ops import cuda_sw
@@ -166,8 +208,14 @@ def main(argv=None) -> int:
                     help="another checkout whose sw_score is timed too")
     ap.add_argument("--sass", default="",
                     help="write cuobjdump -sass of the package's build here")
+    ap.add_argument("--count", default="",
+                    help="print K1's loop opcodes from a --sass file and "
+                    "stop (needs no card)")
     ap.add_argument("--json", default="", help="also write the times here")
     args = ap.parse_args(argv)
+    if args.count:
+        print_k1_loops(Path(args.count).read_text())
+        return 0
     if not torch.cuda.is_available():
         raise SystemExit("tune_sw: CUDA is not available")
     dev = torch.device("cuda:0")
@@ -178,6 +226,7 @@ def main(argv=None) -> int:
         res = subprocess.run([str(dump), "-sass", str(package_so)],
                              capture_output=True, text=True, check=True)
         Path(args.sass).write_text(res.stdout)
+        print_k1_loops(res.stdout)
 
     out = {"card": card_line(), "times_ms": {}}
     for shape in SHAPES:

@@ -227,3 +227,52 @@ def test_vote_kernel_raises_above_nine_hashes(dev):
     with pytest.raises(ValueError, match="hash functions"):
         cuda_vote.vote_state(z, z)
     assert cuda_vote.vote_state.launches == n0
+
+
+def _card_mesh(n_shards=4):
+    """n_shards entries over every visible card in turn: one card holds
+    them all, four cards hold one each."""
+    from localhgt_tpu_torch.parallel.mesh import make_flat_mesh
+
+    cards = torch.cuda.device_count()
+    return make_flat_mesh([f"cuda:{i % cards}" for i in range(n_shards)])
+
+
+def test_sw_align_sharded_on_the_card(dev):
+    """Data-parallel K1: every shard launches the kernel on its own card
+    and the rows come back in order."""
+    from localhgt_tpu_torch.ops import sw
+
+    q, r = _reads(np.random.default_rng(17), 3001, 150, 214)
+    want = sw.sw_align_tiled(q, r, dev)
+    mesh = _card_mesh()
+    n0 = cuda_sw.sw_align.launches
+    got = sw.sw_align_sharded(mesh, q, r, tile=512)
+    assert cuda_sw.sw_align.launches == n0 + 4 * 2   # 750 rows a shard
+    for f in sw.FIELDS:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+
+
+def test_bkp_over_a_mesh_on_the_card(dev, tmp_path):
+    """`bkp` at k=18 over four shards, on as many cards as there are:
+    every file equals the single-device run's, and K3 launches once per
+    shard and vote batch (no plain version on a CUDA tensor)."""
+    from localhgt_tpu_torch.config import Config, KmerConfig
+    from localhgt_tpu_torch.pipeline.bkp import detect_breakpoint
+    from localhgt_tpu_torch.sim.simulate import SimParams, simulate_sample
+
+    out = str(tmp_path)
+    ref, fq1, fq2, _ = simulate_sample(out, "sx", SimParams(
+        n_genomes=6, genome_len=30_000, hgt_num=3, depth=8, snp_rate=0.01,
+        seed=21))
+    cfg = Config().replace(kmer=KmerConfig(k=18))
+    detect_breakpoint(ref, fq1, fq2, "one", out, dev, cfg=cfg)
+    mesh = _card_mesh()
+    n0 = cuda_vote.vote_state.launches
+    detect_breakpoint(ref, fq1, fq2, "mesh", out, dev, cfg=cfg, mesh=mesh)
+    assert cuda_vote.vote_state.launches == n0 + mesh.n  # one vote batch
+    for suffix in ("acc.csv", "interval.txt", "interval.txt.bed"):
+        with open(f"{out}/one.{suffix}", "rb") as f, \
+                open(f"{out}/mesh.{suffix}", "rb") as g:
+            want = f.read()
+            assert want.count(b"\n") > 1 and g.read() == want, suffix

@@ -393,6 +393,35 @@ def _check_validate_and_metrics(sample, tmp_path):
           jax_validate_events.reconstruct_junctions(jc, *args))
 
 
+def _check_grid_and_derived():
+    """The sweep's grids are the original's, and `metrics.derived` gives
+    the original's numbers from the same registry contents (without
+    `count_step_gbps_device`: the port records no device step series)."""
+    import localhgt_tpu.sim.grid as jax_grid
+    import localhgt_tpu_torch.sim.grid as grid
+
+    assert grid.SCENARIOS == jax_grid.SCENARIOS
+    assert grid.AMOUNT_FRACTIONS == jax_grid.AMOUNT_FRACTIONS
+    for mod in (metrics, jax_metrics):
+        mod.reset()
+        mod.add_time("count", 2.5)
+        mod.add_time("align", 1.25)
+        mod.add("sw_cells", 3e9)
+        mod.add("count_batches", 7)
+        for v in (0.01, 0.02):
+            mod.record("sw_kernel_s", v)
+            mod.record("count_step_device_s", v)
+    want = jax_metrics.derived(1000, 150, 3)
+    assert "count_step_gbps_device" in want
+    del want["count_step_gbps_device"]
+    assert metrics.derived(1000, 150, 3) == want
+    assert set(want) == {"count_scatter_gbps_stage", "sw_gcups_stage",
+                         "sw_gcups_kernel"}
+    for mod in (metrics, jax_metrics):
+        mod.reset()
+    assert metrics.derived(1000, 150, 3) == jax_metrics.derived(1000, 150, 3)
+
+
 def _options(parser):
     """{subcommand: {option strings: (dest, default, type, choices,
     required, nargs, help)}} of an argparse parser."""
@@ -447,6 +476,7 @@ GROUPS = {
     "evaluate": lambda s, t: _check_evaluate(s),
     "validate_metrics_junctions": _check_validate_and_metrics,
     "parser": lambda s, t: _check_parser(),
+    "grid_derived": lambda s, t: _check_grid_and_derived(),
 }
 
 

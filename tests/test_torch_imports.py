@@ -40,7 +40,10 @@ def test_every_port_module_is_listed():
                  "localhgt_tpu_torch.pipeline.rawbkp",
                  "localhgt_tpu_torch.pipeline.event",
                  "localhgt_tpu_torch.sim.simulate",
-                 "localhgt_tpu_torch.analysis.association"):
+                 "localhgt_tpu_torch.analysis.association",
+                 "localhgt_tpu_torch.parallel.mesh",
+                 "localhgt_tpu_torch.parallel.extract_sharded",
+                 "localhgt_tpu_torch.sim.grid"):
         assert name in mods
 
 
@@ -107,14 +110,25 @@ def test_cli_bkp_reproduces_golden_with_jax_package_blocked(tmp_path):
             assert f.read() == g.read(), name
 
 
-def test_no_source_line_imports_the_jax_package():
+def _sources_matching(pattern):
     files = glob.glob(os.path.join(ROOT, "localhgt_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
     assert len(files) > 40
-    pat = re.compile(r"^\s*(import|from)\s+localhgt_tpu(\.|\s|$)", re.M)
+    pat = re.compile(pattern, re.M)
     bad = []
     for path in files:
         with open(path) as f:
             if pat.search(f.read()):
                 bad.append(os.path.relpath(path, ROOT))
-    assert not bad
+    return bad
+
+
+def test_no_source_line_imports_the_jax_package():
+    assert not _sources_matching(
+        r"^\s*(import|from)\s+localhgt_tpu(\.|\s|$)")
+
+
+def test_no_source_line_names_torch_distributed():
+    """The multi-device path is one process over an explicit device list:
+    no process group, no NCCL."""
+    assert not _sources_matching(r"torch\.distributed")

@@ -78,14 +78,15 @@ def test_port_direct_mode_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """--multi_chip on is the one option left unported; `analyze` runs and
-    writes the JAX CLI's JSON."""
+    """No option of `bkp` is left unported: --multi_chip on, the last one
+    that raised, now gets as far as the JAX CLI does on missing inputs
+    (exit 2; tests/test_torch_sharded.py runs it on real ones). `analyze`
+    runs and writes the JAX CLI's JSON."""
     from localhgt_tpu import cli as jax_cli
 
     args = ["bkp", "-r", "x.fa", "--fq1", "a.fq", "--fq2", "b.fq",
-            "-o", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(args + ["--multi_chip", "on"])
+            "-o", str(tmp_path), "--multi_chip", "on"]
+    assert cli.main(args + ["--device", "cpu"]) == jax_cli.main(args) == 2
     acc = tmp_path / "gold.acc.csv"
     acc.write_bytes(_bytes(os.path.join(GOLD, "gold.acc.csv")))
     outs = []
