@@ -12,14 +12,16 @@ Phases, each fatal on failure:
      bound (the larger of its bytes over 3.35 TB/s and its integer
      operations over SMs x 64 lanes x the SM clock): at the bkp path's
      shapes (K2 at every window width accbkp makes from 150-bp reads: 96,
-     128 and 160), K1/K2 also at validate_events' wide reference (B=512,
-     M=N=1,000), K3 also at the main path's candidate density, at a ragged
-     B, at a P that is no multiple of 4 and at the sharded vote's B;
+     128 and 160; K1 at the main path's median batch of 152, the record,
+     and in a full tile of 8,192), K1/K2 also at validate_events' wide
+     reference (B=512, M=N=1,000), K3 also at the main path's candidate
+     density, at a ragged B, at a P that is no multiple of 4 and at the
+     sharded vote's B;
   4. simulate the `big` fixture (100 genomes x 1 Mbp, 50 HGTs, depth 5,
      seed 42) in a temporary directory;
   5. `bkp` at k=32 through the port's CLI entry on the card: every kernel
      must launch, recall >= 0.90 and FDR <= 0.05 (+-50 bp); logs the
-     (B, N) of K2's launches;
+     (B, N) of K2's launches and the (B, M, N) of K1's;
   6. `event` on the output folder through the port's CLI, then the
      multi-device path on one card: `bkp --multi_chip on` through the CLI
      (a mesh of one shard) and `detect_breakpoint` over a mesh of four
@@ -78,19 +80,19 @@ INT32_LANES_PER_SM = 64
 # permutes). Adds are left out: they also issue as multiply-adds on the
 # FMA pipe, beside the integer pipe.
 # K1 needs the winner of every maximum (its origin registers), so the
-# three-input forms do not serve it; a maximum with its winner is one
-# max-with-predicate and one select. In the Gotoh form a cell is:
-# substitution (one byte permute, as in K2) 1; the diagonal's origin
-# (compare H > 0, select the carried origin or the cell's index) 2;
-# H1 = max(diag + sub, 0, F) with its winner (add-max-relu,
-# max-with-predicate, select) 3; H = max(H1, E) 2; E's running maximum 2;
-# F's running maximum 2; the best cell (max-with-predicate, a select for
-# its origin and one for its packed position) 3 = 15. The cell's five adds
-# (diag + sub, the two gap extensions, open + ext onto H1, the cell index)
-# are not counted. The kernel as built issues 29.5 such instructions a
-# cell (its steady loop at 8 columns a lane: 98 compares, 86 selects, 47
-# maxima and 5 predicate ops in 311 instructions a row, `cuobjdump -sass`),
-# the scan over the lanes and the second pass of E's prefix among them.
+# three-input forms do not serve it. On sm_90a `__vibmax_s32` compiles to
+# a compare and a select (`cuobjdump -sass`: no max with a predicate
+# result), so a maximum with its winner is a compare and two selects. In
+# the Gotoh form a cell is: substitution (one byte permute, as in K2) 1;
+# max(diag + sub, 0) (one add-max) 1; the diagonal's origin (compare
+# H > 0, select the carried origin or the cell's index) 2; H1, H, E and F
+# 3 each; the best cell (compare, selects of its H, index and origin) 4
+# = 20. The cell's five adds (the two gap steps, open + ext onto H1 and
+# onto H, the cell's index) are not counted. The kernel's steady loop at
+# align's windows issues 20.5 such instructions a cell (32 lanes x 8
+# columns: 96 selects, 50 compares, 8 permutes, 8 add-maxima and 2 logic
+# ops in a step of 8 cells; 19.9 in the wide 32 x 16), where the
+# row-by-row kernel it replaced issued 29.5.
 # K2, the score alone, needs no origin behind a maximum, so Hopper's
 # three-input forms apply; in the Gotoh form (header of csrc/sw.cu) a cell
 # is: substitution (one byte permute out of the column's table word),
@@ -103,7 +105,7 @@ INT32_LANES_PER_SM = 64
 # (sw_score_plain's prefix-max form, with a compare and a select for the
 # substitution and two-input maxima, counts 10: the kernel runs in less
 # time than that count allows.)
-K1_OPS_PER_CELL, K2_OPS_PER_CELL = 15, 5.5
+K1_OPS_PER_CELL, K2_OPS_PER_CELL = 20, 5.5
 # K3, counted from the data: 2G operations (compare, select-max) per
 # non-zero candidate and 3G (compare, increment or victim search and
 # insert) per position that has one
@@ -199,8 +201,10 @@ def check_kernels(dev) -> list:
         return recs
 
     # K1 at the align stage's shapes: 150-bp reads in a 192-wide batch,
-    # reference window 192 + 2*32
-    out += sw_both(8192, 192, 256, False, "", True, False)
+    # reference window 192 + 2*32; the record at the median batch the main
+    # path launches (152 on `big`), a full tile of 8,192 only logged
+    out += sw_both(152, 192, 256, False, "", True, False)
+    sw_both(8192, 192, 256, False, "_b8192", True, False)
     sw_both(8192, 192, 256, True, "_tie_heavy", True, False)
     # K2 at the accbkp window-scan shapes (clip length padded to 32s):
     # 160 is the record, 96 and 128 show what a narrower window costs
@@ -266,6 +270,7 @@ def drive(dev, fn):
 
     for w, attr in counters().values():
         setattr(w, attr, 0)
+    cuda_sw.sw_align.shapes.clear()
     cuda_sw.sw_score.shapes.clear()
     t = time.perf_counter()
     res = fn()
@@ -324,6 +329,9 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
         by_bn[(B, N)] += n
     log(f"{tag} K2 launches by (B, N): " + ", ".join(
         f"({B}, {N}) x {n}" for (B, N), n in sorted(by_bn.items())))
+    k1 = sorted(cuda_sw.sw_align.shapes.items())
+    log(f"{tag} K1 launches by (B, M, N): " + ", ".join(
+        f"{shape} x {n}" for shape, n in k1))
     if min(launches[n] for n in ("sw_align", "sw_score", "vote_state")) <= 0:
         raise SystemExit(f"a kernel of the bkp path never launched: "
                          f"{launches}")
@@ -511,7 +519,7 @@ def run_validate(dev, work: str, ref: str, events: str, truth: str) -> dict:
     """validate_events on the event calls that match truth; returns the
     launch counts."""
     from localhgt_tpu_torch.io import fasta
-    from localhgt_tpu_torch.ops import coder
+    from localhgt_tpu_torch.ops import coder, cuda_sw
     from localhgt_tpu_torch.sim.evaluate import TOLERATE_DIST
     from localhgt_tpu_torch.sim.simulate import read_truth
     from localhgt_tpu_torch.tools.validate_events import reconstruct_junctions
@@ -568,7 +576,8 @@ def run_validate(dev, work: str, ref: str, events: str, truth: str) -> dict:
     ok = sum(r["validated"] == "True" for r in rows)
     log(f"[validate] {len(calls)} event calls, {len(true_calls)} match "
         f"truth, {ok} validated by {len(reads)} long reads in {wall:.1f} s; "
-        f"kernel launches: {json.dumps(launches)}")
+        f"kernel launches: {json.dumps(launches)}; K1 launches by (B, M, "
+        f"N): {sorted(cuda_sw.sw_align.shapes.items())}")
     if ok < MIN_VALIDATED * len(true_calls):
         raise SystemExit(f"validated {ok} of {len(true_calls)} true calls "
                          f"(< {MIN_VALIDATED:.0%})")

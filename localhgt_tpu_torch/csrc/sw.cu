@@ -8,445 +8,109 @@
 // bytes and writes 20 (K1) or 4 (K2) bytes per alignment, so both are bound
 // by the integer instructions they execute, not by memory.
 //
-// ---- K1 ----
-// Recurrence (identical to the Pallas body, row i over columns j):
+// ---- The recurrence ----
+// The Pallas bodies compute row i over the columns j in a prefix-max form:
 //   H1 = max(max(Hdiag + sub, 0), F)      F = Mf + open + i*ext
 //   E  = prefmax_{j'<j}(H1 - j'*ext) + open + j*ext
 //   H  = max(H1, E);  Mf = max(Mf, H - i*ext)
-//
-// Mapping: one warp per alignment. Lane l holds the NPL contiguous columns
-// [l*NPL, (l+1)*NPL) in registers; the loop runs over the M query rows.
-// The diagonal neighbour of a lane's first column comes from lane l-1 by
-// __shfl_up_sync, and E's prefix max is a scan inside the lane followed by
-// a warp scan of the lane totals.
-//
-// Tie rules, which decide the start coordinates and are reproduced exactly:
-//   * H1 prefers the diagonal over F, H prefers H1 over E, Mf keeps the
-//     older value: each takes the challenger only when strictly greater;
-//   * E's prefix max takes the LATEST j' among tied maxima (the Pallas
-//     log-step shift-max keeps the current value on ties);
-//   * the best cell is max H, then the earliest row, then the smallest j.
-//
-// Wide references (512 < N <= 4096) cannot keep N/32 columns per lane in
-// registers: five int32 arrays of up to 128 would spill. There one block
-// aligns one pair: each thread holds 8 contiguous columns and each warp a
-// contiguous stripe of 256. Per row, the diagonal neighbour of a warp's
-// first column and the warps' E prefix totals pass through shared memory,
-// with two barriers a row; the tie rules above hold across stripes (an
-// earlier stripe's prefix wins only when strictly greater).
-//
-// ---- K2 ----
-// K2 returns only the score, so no tie rule binds it, and it computes the
-// same numbers cell by cell in the Gotoh form, which needs no i*ext or
-// j*ext term (equal to the form above in integers: F below is
+// Both kernels compute the same numbers cell by cell in the Gotoh form,
+// which needs no i*ext or j*ext term (equal in integers: F below is
 // Mf + open + i*ext, and E is the prefix maximum written as a recurrence):
-//   H1[i][j] = max(H[i-1][j-1] + sub(q[i], r[j]), F[i][j], 0)
+//   H1[i][j] = max(H[i-1][j-1] + sub(q[i], r[j]), 0, F[i][j])
 //   H [i][j] = max(H1[i][j], E[i][j])
 //   E [i][j+1] = max(E[i][j] + ext, H1[i][j] + open + ext)  E[i][0] = NEG+open
 //   F [i+1][j] = max(F[i][j] + ext, H [i][j] + open + ext)  F[0][j] = NEG+open
 //   score = max(0, max H)
 // sub is `match` where both codes are equal and below 4, else `mismatch`.
 //
-// Mapping: an anti-diagonal wavefront (sw_score_kernel). A group of G lanes
-// holds one alignment, lane l the NPL columns [l*NPL, (l+1)*NPL) as H, F
-// and the column's substitution table, in registers. At step t lane l
-// works on query row t - l, so it needs from lane l-1 only what that lane
-// left behind one step earlier: its last H (the diagonal of the next row)
-// and the E that runs out of its last column. Two independent shuffles a
-// step, no scan, and G - 1 steps of fill and drain; the steps in which
-// every lane has a row run without the lane's own test. (G, NPL) is chosen
-// so that G * NPL is the window's width: NPL is any integer, and groups of
-// 8 or 16 lanes put four or two alignments into a warp (LHT_SCORE_PAIRS
-// lists the pairs with the N each serves).
+// K1 also carries, beside H, F and E, the origin of each: the packed index
+// i*(N+1) + j of the cell that started the alignment. A cell's own index
+// is a base computed once a row plus a constant a column. The Pallas tie
+// rules, which decide the start coordinates (ROADMAP F1), become one order
+// of the operands of each maximum:
+//   * H1: the diagonal (its origin O[i-1][j-1] where H[i-1][j-1] > 0, else
+//     the cell's own index) wins a tie against F;
+//   * H: H1 wins a tie against E;
+//   * E: the newly opened gap wins a tie against the extended one (the
+//     prefix maximum takes the LATEST j' among tied maxima: the Pallas
+//     log-step shift-max keeps the current value on ties);
+//   * F: the extended gap wins a tie (Mf keeps the older value on ties);
+//   * the best cell: max H, then the earliest row, then the smallest
+//     column; a lane meets its cells in row-major order, so it keeps a
+//     cell only when strictly greater, and the lanes' bests are reduced
+//     lexicographically at the end (the packed index orders rows, then
+//     columns).
+// Each maximum with its winner is one `__vibmax_s32` (max and a predicate,
+// a wins when a >= b) and one select for the origin.
 //
-// A cell is 7.5 instructions: one byte permute for sub (the column holds
-// its score against each of the four query codes in the bytes of one word,
-// and the query is staged, 32 rows at a time into a ring in shared memory,
-// as the selector that picks its byte), `__viaddmax_s32_relu` for H1, a
-// max for H, an add and a `__viaddmax_s32` each for E and F, and half a
+// ---- Mapping: an anti-diagonal wavefront (both kernels) ----
+// A group of G lanes holds one alignment, lane l the NPL columns
+// [l*NPL, (l+1)*NPL) in registers (K2: H, F and the column's substitution
+// table; K1 also O and F's origin). At step t lane l works on query row
+// t - l, so it needs from lane l-1 only what that lane left behind one
+// step earlier: its last H (the diagonal of the next row) and the E that
+// runs out of its last column, and for K1 their origins. Two (K2) or four
+// (K1) independent shuffles a step, no scan, and G - 1 steps of fill and
+// drain; the steps in which every lane has a row run without the lane's
+// own test. (G, NPL) is chosen so that G * NPL covers the window: NPL is
+// any integer, and groups of 8 or 16 lanes put four or two alignments into
+// a warp (LHT_SCORE_PAIRS and LHT_ALIGN_PAIRS list the pairs with the N
+// each serves; K1 takes only 32-lane groups).
+//
+// The substitution score is one byte permute: the column holds its score
+// against each of the four query codes in the bytes of one word, and the
+// query is staged, 32 rows at a time into a ring in shared memory, as the
+// selector that picks its byte.
+// K2's cell is 7.5 instructions: the permute, `__viaddmax_s32_relu` for H1,
+// a max for H, an add and a `__viaddmax_s32` each for E and F, and half a
 // `__vimax3_s32` for the maximum. 5.5 of them are permutes and maxima,
 // which only the SM's 64-lane integer pipe runs.
+// K1's cell is 20 on that pipe: `__vibmax_s32` has no one instruction
+// on sm_90a and compiles to a compare and a select, so a maximum with its
+// winner is a compare and two selects. The permute, `__viaddmax_s32` for
+// max(diag + sub, 0), a compare and a select for the diagonal's origin,
+// three each for H1, H, E and F, and for the best a compare and three
+// selects (its H, index and origin); and five adds (the gap steps and the
+// cell's index).
 // Columns past N are not masked out of the maximum: with mismatch <= 0,
-// ext <= 0 and open + ext <= 0 their H cannot exceed that of a real cell.
-// Other parameters, and scores that do not fit a byte of the table, take a
-// guarded instantiation with a compare and a select for sub (lht_sw_score).
+// ext <= 0 and open + ext <= 0 their H cannot exceed that of a real cell
+// that comes earlier in row-major order, so they cannot win K1's best
+// either. Other parameters, and scores that do not fit a byte of the
+// table, take a guarded instantiation with a compare and a select for sub
+// that leaves those columns out of the maximum (table_fits).
 //
 // Wide references (512 < N <= 4096): one block per alignment, as many
 // alignments as there are on an SM being too few warps otherwise. The same
-// kernel body, G = 32: warp w holds the stripe of 256 columns after warp
-// w-1's and runs the same wavefront some rows behind it. The edge between
-// two stripes (the left warp's last H and outgoing E of every row) goes
-// through a ring of 256 rows in shared memory. A warp publishes the number
-// of steps it has finished after every 32; its right neighbour waits for
-// the rows of its next 32 steps, and it waits for its right neighbour
-// before it overwrites rows of the ring. No block barrier in the loop, and
-// no warp waits for one to its right except where the ring is full.
+// kernel body, G = 32: warp w holds the stripe of 32*NPL columns after
+// warp w-1's and runs the same wavefront some rows behind it. The edge
+// between two stripes (the left warp's last H and outgoing E of every row,
+// with their origins for K1) goes through a ring of 256 rows in shared
+// memory. A warp publishes the number of steps it has finished after every
+// 32; its right neighbour waits for the rows of its next 32 steps, and it
+// waits for its right neighbour before it overwrites rows of the ring. No
+// block barrier in the loop, and no warp waits for one to its right except
+// where the ring is full. The bests are reduced over the block once, at
+// the end.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(); it never synchronises or allocates.
+//
+// Tuning switches, set only by `python -m localhgt_tpu_torch.tune_sw`; the
+// package's own build defines none of them:
+//   LHT_SW_G, LHT_SW_NPL   K2: one (lanes a group, columns a lane) pair for
+//                          every N <= G * NPL instead of LHT_SCORE_PAIRS;
+//   LHT_SWA_G, LHT_SWA_NPL the same for K1 instead of LHT_ALIGN_PAIRS;
+//   LHT_SW_SCAN            K2 row by row (sw_score_scan_kernel);
+//   LHT_SW_TABLE           0: the substitution score as a compare and a
+//                          select; 1: as one byte permute out of a table
+//                          word a column (both kernels);
+//   LHT_SW_WIDE_NPL        columns a lane of K2's wide mapping.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-namespace {
-
-constexpr int kNeg = -(1 << 28);
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 4;
-
-template <int NPL>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
-                int32_t* __restrict__ out, long long B, int M, int N,
-                int match, int mismatch, int go, int ge) {
-  const int lane = threadIdx.x & 31;
-  const long long b =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= B) return;  // uniform across the warp
-  const uint8_t* qb = q + b * M;
-  const uint8_t* rb = r + b * N;
-  const int j0 = lane * NPL;
-  const int np1 = N + 1;
-
-  int rc[NPL], H[NPL], O[NPL], Mf[NPL], MfO[NPL];
-#pragma unroll
-  for (int c = 0; c < NPL; ++c) {
-    const int j = j0 + c;
-    rc[c] = j < N ? (int)rb[j] : 4;
-    H[c] = 0;
-    O[c] = 0;
-    Mf[c] = kNeg;
-    MfO[c] = 0;
-  }
-  int bH = 0, bI = 0, bJ = 0, bO = 0;  // this lane's best cell
-
-  for (int i = 0; i < M; ++i) {
-    const int qi = qb[i];
-    int hl = __shfl_up_sync(kFull, H[NPL - 1], 1);
-    int ol = __shfl_up_sync(kFull, O[NPL - 1], 1);
-    if (lane == 0) {
-      hl = 0;
-      ol = 0;
-    }
-    const int fadd = go + i * ge;
-    int H1[NPL], O1[NPL];
-#pragma unroll
-    for (int c = 0; c < NPL; ++c) {
-      const int hd = c == 0 ? hl : H[c - 1];
-      const int od = c == 0 ? ol : O[c - 1];
-      const int sub =
-          (rc[c] == qi && rc[c] < 4 && qi < 4) ? match : mismatch;
-      const int diag = hd + sub;
-      const int diag_o = hd > 0 ? od : i * np1 + (j0 + c);
-      const int h0 = diag > 0 ? diag : 0;
-      const int f = Mf[c] + fadd;
-      if (f > h0) {
-        H1[c] = f;
-        O1[c] = MfO[c];
-      } else {
-        H1[c] = h0;
-        O1[c] = diag_o;
-      }
-    }
-    // inclusive prefix max of T = H1 - j*ext inside the lane, later wins ties
-    int sv = kNeg, so = 0;
-#pragma unroll
-    for (int c = 0; c < NPL; ++c) {
-      const int t = H1[c] - (j0 + c) * ge;
-      if (t >= sv) {
-        sv = t;
-        so = O1[c];
-      }
-    }
-    // warp inclusive scan of the lane totals: an earlier lane wins only
-    // when strictly greater
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int pv = __shfl_up_sync(kFull, sv, d);
-      const int po = __shfl_up_sync(kFull, so, d);
-      if (lane >= d && pv > sv) {
-        sv = pv;
-        so = po;
-      }
-    }
-    int ev = __shfl_up_sync(kFull, sv, 1);
-    int eo = __shfl_up_sync(kFull, so, 1);
-    if (lane == 0) {
-      ev = kNeg;
-      eo = 0;
-    }
-    // ev/eo now hold the exclusive prefix (j' < j) for the lane's first column
-#pragma unroll
-    for (int c = 0; c < NPL; ++c) {
-      const int j = j0 + c;
-      const int e = ev + go + j * ge;
-      int h, o;
-      if (e > H1[c]) {
-        h = e;
-        o = eo;
-      } else {
-        h = H1[c];
-        o = O1[c];
-      }
-      if (h < 0) h = 0;
-      const int t = H1[c] - j * ge;
-      if (t >= ev) {
-        ev = t;
-        eo = O1[c];
-      }
-      const int mv = h - i * ge;
-      if (mv > Mf[c]) {
-        Mf[c] = mv;
-        MfO[c] = o;
-      }
-      if (j < N && h > bH) {
-        bH = h;
-        bI = i;
-        bJ = j;
-        bO = o;
-      }
-      H[c] = h;
-      O[c] = o;
-    }
-  }
-  // best over lanes: max H, then earliest row, then smallest column
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const int oh = __shfl_xor_sync(kFull, bH, d);
-    const int oi = __shfl_xor_sync(kFull, bI, d);
-    const int oj = __shfl_xor_sync(kFull, bJ, d);
-    const int oo = __shfl_xor_sync(kFull, bO, d);
-    if (oh > bH || (oh == bH && (oi < bI || (oi == bI && oj < bJ)))) {
-      bH = oh;
-      bI = oi;
-      bJ = oj;
-      bO = oo;
-    }
-  }
-  if (lane == 0) {
-    int32_t* ob = out + b * 5;
-    if (bH <= 0) {
-      ob[0] = ob[1] = ob[2] = ob[3] = ob[4] = 0;
-    } else {
-      const int qs = bO / np1;
-      ob[0] = bH;
-      ob[1] = qs;
-      ob[2] = bI;
-      ob[3] = bO - qs * np1;
-      ob[4] = bJ;
-    }
-  }
-}
-
-int columns_per_lane(int N) {
-  int npl = 1;
-  while (npl * 32 < N) npl *= 2;
-  return npl;
-}
-
-constexpr int kNarrowMaxN = 16 * 32;  // the widest one-warp dispatch
-constexpr int kWideNPL = 8;           // columns per thread, wide variant
-constexpr int kWideMaxWarps = 16;
-constexpr int kWideMaxN = kWideNPL * 32 * kWideMaxWarps;  // 4096
-
-// K1's wide variant: one block of ceil(N / 256) warps per alignment. The
-// recurrence and the tie rules are those of sw_align_kernel, term for term.
-__global__ void __launch_bounds__(32 * kWideMaxWarps)
-sw_align_wide_kernel(const uint8_t* __restrict__ q,
-                     const uint8_t* __restrict__ r, int32_t* __restrict__ out,
-                     int M, int N, int match, int mismatch, int go, int ge) {
-  constexpr int NPL = kWideNPL;
-  // per warp: E prefix total of the row (value, origin) and the last
-  // column's H and origin of the previous row
-  __shared__ int sTotV[kWideMaxWarps], sTotO[kWideMaxWarps];
-  __shared__ int sEdgeH[kWideMaxWarps], sEdgeO[kWideMaxWarps];
-  __shared__ int sBest[4][kWideMaxWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const long long b = blockIdx.x;
-  const uint8_t* qb = q + b * M;
-  const uint8_t* rb = r + b * N;
-  const int j0 = threadIdx.x * NPL;
-  const int np1 = N + 1;
-
-  int rc[NPL], H[NPL], O[NPL], Mf[NPL], MfO[NPL];
-#pragma unroll
-  for (int c = 0; c < NPL; ++c) {
-    const int j = j0 + c;
-    rc[c] = j < N ? (int)rb[j] : 4;
-    H[c] = 0;
-    O[c] = 0;
-    Mf[c] = kNeg;
-    MfO[c] = 0;
-  }
-  if (lane == 31) {
-    sEdgeH[warp] = 0;
-    sEdgeO[warp] = 0;
-  }
-  __syncthreads();
-  int bH = 0, bI = 0, bJ = 0, bO = 0;  // this thread's best cell
-
-  for (int i = 0; i < M; ++i) {
-    const int qi = qb[i];
-    int hl = __shfl_up_sync(kFull, H[NPL - 1], 1);
-    int ol = __shfl_up_sync(kFull, O[NPL - 1], 1);
-    if (lane == 0) {
-      hl = warp == 0 ? 0 : sEdgeH[warp - 1];
-      ol = warp == 0 ? 0 : sEdgeO[warp - 1];
-    }
-    const int fadd = go + i * ge;
-    int H1[NPL], O1[NPL];
-#pragma unroll
-    for (int c = 0; c < NPL; ++c) {
-      const int hd = c == 0 ? hl : H[c - 1];
-      const int od = c == 0 ? ol : O[c - 1];
-      const int sub =
-          (rc[c] == qi && rc[c] < 4 && qi < 4) ? match : mismatch;
-      const int diag = hd + sub;
-      const int diag_o = hd > 0 ? od : i * np1 + (j0 + c);
-      const int h0 = diag > 0 ? diag : 0;
-      const int f = Mf[c] + fadd;
-      if (f > h0) {
-        H1[c] = f;
-        O1[c] = MfO[c];
-      } else {
-        H1[c] = h0;
-        O1[c] = diag_o;
-      }
-    }
-    int sv = kNeg, so = 0;
-#pragma unroll
-    for (int c = 0; c < NPL; ++c) {
-      const int t = H1[c] - (j0 + c) * ge;
-      if (t >= sv) {
-        sv = t;
-        so = O1[c];
-      }
-    }
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int pv = __shfl_up_sync(kFull, sv, d);
-      const int po = __shfl_up_sync(kFull, so, d);
-      if (lane >= d && pv > sv) {
-        sv = pv;
-        so = po;
-      }
-    }
-    if (lane == 31) {
-      sTotV[warp] = sv;
-      sTotO[warp] = so;
-    }
-    __syncthreads();  // every warp's row total is written
-    // prefix over the earlier stripes, in column order: the later wins ties
-    int wv = kNeg, wo = 0;
-    for (int w = 0; w < warp; ++w) {
-      if (sTotV[w] >= wv) {
-        wv = sTotV[w];
-        wo = sTotO[w];
-      }
-    }
-    int ev = __shfl_up_sync(kFull, sv, 1);
-    int eo = __shfl_up_sync(kFull, so, 1);
-    if (lane == 0 || wv > ev) {  // lanes of this warp are later than wv
-      ev = wv;
-      eo = wo;
-    }
-#pragma unroll
-    for (int c = 0; c < NPL; ++c) {
-      const int j = j0 + c;
-      const int e = ev + go + j * ge;
-      int h, o;
-      if (e > H1[c]) {
-        h = e;
-        o = eo;
-      } else {
-        h = H1[c];
-        o = O1[c];
-      }
-      if (h < 0) h = 0;
-      const int t = H1[c] - j * ge;
-      if (t >= ev) {
-        ev = t;
-        eo = O1[c];
-      }
-      const int mv = h - i * ge;
-      if (mv > Mf[c]) {
-        Mf[c] = mv;
-        MfO[c] = o;
-      }
-      if (j < N && h > bH) {
-        bH = h;
-        bI = i;
-        bJ = j;
-        bO = o;
-      }
-      H[c] = h;
-      O[c] = o;
-    }
-    if (lane == 31) {
-      sEdgeH[warp] = H[NPL - 1];
-      sEdgeO[warp] = O[NPL - 1];
-    }
-    __syncthreads();  // edges written; totals read by every warp
-  }
-  // best over the block: max H, then earliest row, then smallest column
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const int oh = __shfl_xor_sync(kFull, bH, d);
-    const int oi = __shfl_xor_sync(kFull, bI, d);
-    const int oj = __shfl_xor_sync(kFull, bJ, d);
-    const int oo = __shfl_xor_sync(kFull, bO, d);
-    if (oh > bH || (oh == bH && (oi < bI || (oi == bI && oj < bJ)))) {
-      bH = oh;
-      bI = oi;
-      bJ = oj;
-      bO = oo;
-    }
-  }
-  if (lane == 0) {
-    sBest[0][warp] = bH;
-    sBest[1][warp] = bI;
-    sBest[2][warp] = bJ;
-    sBest[3][warp] = bO;
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  for (int w = 1; w < nwarps; ++w) {
-    const int oh = sBest[0][w], oi = sBest[1][w], oj = sBest[2][w];
-    if (oh > bH || (oh == bH && (oi < bI || (oi == bI && oj < bJ)))) {
-      bH = oh;
-      bI = oi;
-      bJ = oj;
-      bO = sBest[3][w];
-    }
-  }
-  int32_t* ob = out + b * 5;
-  if (bH <= 0) {
-    ob[0] = ob[1] = ob[2] = ob[3] = ob[4] = 0;
-  } else {
-    const int qs = bO / np1;
-    ob[0] = bH;
-    ob[1] = qs;
-    ob[2] = bI;
-    ob[3] = bO - qs * np1;
-    ob[4] = bJ;
-  }
-}
-
-// ------------------------------------------------------------------ K2
-//
-// Tuning switches, set only by `python -m localhgt_tpu_torch.tune_sw`; the
-// package's own build defines none of them:
-//   LHT_SW_G, LHT_SW_NPL   one (lanes a group, columns a lane) pair for
-//                          every N <= G * NPL instead of the table below;
-//   LHT_SW_SCAN            the row-by-row mapping (sw_score_scan_kernel);
-//   LHT_SW_TABLE           0: the substitution score as a compare and a
-//                          select; 1: as one byte permute out of a table
-//                          word a column (score_row);
-//   LHT_SW_WIDE_NPL        columns a lane of the wide mapping.
 #ifndef LHT_SW_SCAN
 #define LHT_SW_SCAN 0
 #endif
@@ -457,12 +121,18 @@ sw_align_wide_kernel(const uint8_t* __restrict__ q,
 #define LHT_SW_WIDE_NPL 8
 #endif
 
-constexpr int kScoreWarps = 4;           // warps a block, N <= 512
+namespace {
+
+constexpr int kNeg = -(1 << 28);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNarrowMaxN = 16 * 32;  // the widest one-warp dispatch
+constexpr int kWideMaxWarps = 16;
+constexpr int kWideMaxN = 4096;
+constexpr int kScoreWarps = 4;  // warps a block, N <= 512 (both kernels)
 // query rows staged at a time, and the steps between two progress counts
 // of a stripe of the wide mapping; a power of two
 constexpr int kChunk = 32;
-constexpr int kScoreWideNPL = LHT_SW_WIDE_NPL;
-constexpr int kEdgeRows = 256;           // rows of a stripe's edge in the ring
+constexpr int kEdgeRows = 256;  // rows of a stripe's edge in the ring
 // codes that never match: a query code above 3 and a reference code above
 // 3 (or a column past N) must differ from each other too
 constexpr int kPadQ = 254, kPadR = 255;
@@ -489,6 +159,28 @@ __device__ __forceinline__ int column_entry(int code, int match,
   return word;
 }
 
+// The substitution score of column entry `rc` against query entry `qi`.
+template <bool kTable>
+__device__ __forceinline__ int substitution(int rc, int qi, int match,
+                                            int mismatch) {
+  if (!kTable) return rc == qi ? match : mismatch;
+  int sub;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(sub) : "r"(rc), "r"(mismatch),
+      "r"(qi));
+  return sub;
+}
+
+// Whether the byte-permute table and the unmasked maximum serve these
+// parameters (see the header); the others take the guarded kernels.
+bool table_fits(int match, int mismatch, int go, int ge) {
+  const bool decays = mismatch <= 0 && ge <= 0 && go + ge <= 0;
+#if LHT_SW_TABLE
+  return decays && match >= -128 && match <= 127 && mismatch >= -128;
+#else
+  return decays;
+#endif
+}
+
 // Rows [row0, row0 + kChunk) of one query into the two-chunk ring of a
 // group, the G lanes sharing the loads; rows past M are code 4.
 template <int G, bool kTable>
@@ -503,6 +195,304 @@ __device__ __forceinline__ void stage_query(uint16_t* ring,
   }
 }
 
+// The wide mapping's progress protocol around the steps [t0, tend) of a
+// stripe: wait until the left stripe has written the ring rows these steps
+// read, and until the right stripe has read the rows they overwrite.
+__device__ __forceinline__ void wait_for_neighbours(const int* progress,
+                                                    int warp, int nwarps,
+                                                    int tend, int T) {
+  // the left stripe's last lane is 31 steps behind its first: rows up to
+  // tend-1 are in the ring once that warp finished tend+31 steps
+  if (warp > 0) {
+    const int need = min(tend + 31, T);
+    while (*(volatile const int*)&progress[warp - 1] < need) __nanosleep(20);
+  }
+  // these steps write rows up to tend-32: the right stripe must have read
+  // the rows kEdgeRows before them
+  if (warp + 1 < nwarps) {
+    const int need = tend - 31 - kEdgeRows;
+    while (*(volatile const int*)&progress[warp + 1] < need) __nanosleep(20);
+  }
+  __threadfence_block();
+}
+
+__device__ __forceinline__ void publish_progress(int* progress, int warp,
+                                                 int lane, int tend) {
+  __syncwarp();
+  if (lane == 31) {
+    __threadfence_block();
+    *(volatile int*)&progress[warp] = tend;
+  }
+}
+
+// ------------------------------------------------------------------ K1
+
+// One query row against the NPL columns of a lane. hd, od: H and origin of
+// the row above at the column left of the lane's first; e, eo: E of this
+// row at the lane's first column and its origin, left as the E that runs
+// out of the lane's last column; start: the packed index of the first
+// column's cell. Leaves the lane's H, O, F and F's origin for the next row
+// and keeps the lane's best cell (bH, its index bPos and origin bO).
+template <int NPL, bool kTable, bool kGuard>
+__device__ __forceinline__ void align_row(
+    const int (&rc)[NPL], int (&H)[NPL], int (&O)[NPL], int (&F)[NPL],
+    int (&FO)[NPL], int qi, int hd, int od, int& e, int& eo, int start,
+    int match, int mismatch, int goe, int ge, int nvalid, int& bH,
+    int& bPos, int& bO) {
+#pragma unroll
+  for (int c = 0; c < NPL; ++c) {
+    const int sub = substitution<kTable>(rc[c], qi, match, mismatch);
+    const int h0 = __viaddmax_s32(hd, sub, 0);  // max(hd + sub, 0)
+    const int d_o = hd > 0 ? od : start + c;
+    bool p;
+    const int h1 = __vibmax_s32(h0, F[c], &p);  // the diagonal wins a tie
+    const int o1 = p ? d_o : FO[c];
+    hd = H[c];
+    od = O[c];
+    const int h = __vibmax_s32(h1, e, &p);  // H1 wins a tie
+    const int o = p ? o1 : eo;
+    e = __vibmax_s32(h1 + goe, e + ge, &p);  // the newly opened gap wins
+    eo = p ? o1 : eo;
+    F[c] = __vibmax_s32(F[c] + ge, h + goe, &p);  // the extended gap wins
+    FO[c] = p ? FO[c] : o;
+    H[c] = h;
+    O[c] = o;
+    if (!kGuard || c < nvalid) {
+      bH = __vibmax_s32(bH, h, &p);  // strictly greater: earliest cell
+      bPos = p ? bPos : start + c;
+      bO = p ? bO : o;
+    }
+  }
+}
+
+// Takes the other lane's best where it is greater, or equal at an earlier
+// packed index (an earlier row, then a smaller column).
+__device__ __forceinline__ void take_better(int& bH, int& bPos, int& bO,
+                                            int oh, int opos, int oo) {
+  if (oh > bH || (oh == bH && opos < bPos)) {
+    bH = oh;
+    bPos = opos;
+    bO = oo;
+  }
+}
+
+__device__ __forceinline__ void write_align(int32_t* ob, int bH, int bPos,
+                                            int bO, int np1) {
+  if (bH <= 0) {
+    ob[0] = ob[1] = ob[2] = ob[3] = ob[4] = 0;
+    return;
+  }
+  const int qs = bO / np1, qe = bPos / np1;
+  ob[0] = bH;
+  ob[1] = qs;
+  ob[2] = qe;
+  ob[3] = bO - qs * np1;
+  ob[4] = bPos - qe * np1;
+}
+
+// K1, anti-diagonal wavefront with origins. A group of G lanes holds one
+// alignment, lane l the NPL columns [l*NPL, (l+1)*NPL); at step t lane l
+// works on query row t - l and takes from the lane to its left what that
+// lane left one step earlier (last H and O, outgoing E and its origin).
+// kWide: one block per alignment, G = 32, warp w the stripe of 32*NPL
+// columns after warp w-1's; the edge between two stripes goes through a
+// ring in shared memory (see the header). kGuard: the best skips the
+// columns past N, and the substitution score is a compare and a select.
+template <int G, int NPL, bool kWide, bool kGuard>
+__global__ void __launch_bounds__(kWide ? kWideMaxN / NPL : 32 * kScoreWarps)
+sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
+                int32_t* __restrict__ out, long long B, int M, int N,
+                int match, int mismatch, int go, int ge) {
+  static_assert(!kWide || G == 32, "a stripe is a whole warp");
+  static_assert(G <= kChunk, "the query ring holds the rows of two chunks, "
+                             "and a group's lanes are spread over G");
+  constexpr int kGroups = 32 / G;
+  // wide: as many warps as stripes of 32 * NPL columns cover kWideMaxN
+  constexpr int kWarps = kWide ? kWideMaxN / (32 * NPL) : kScoreWarps;
+  constexpr bool kTable = LHT_SW_TABLE && !kGuard;
+  __shared__ uint16_t sQuery[kWarps][kGroups][2 * kChunk];
+  __shared__ int sProgress[kWarps];  // wide: steps each warp has finished
+  __shared__ int sBest[3][kWarps];   // wide: each warp's best H, index, origin
+  extern __shared__ int4 sRing[];    // wide: [warps - 1][kEdgeRows]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int lg = lane & (G - 1);
+  long long b;
+  int j0;
+  if (kWide) {
+    b = blockIdx.x;
+    j0 = (warp * 32 + lane) * NPL;
+    if (lane == 0) sProgress[warp] = 0;
+    __syncthreads();
+  } else {
+    b = ((long long)blockIdx.x * kScoreWarps + warp) * kGroups;
+    if (b >= B) return;  // uniform across the warp
+    b += lane / G;
+    j0 = lg * NPL;
+  }
+  // a group past B repeats the last alignment and writes nothing, so that
+  // every shuffle below has the whole warp
+  const bool live = b < B;
+  if (!live) b = B - 1;
+  const uint8_t* qb = q + b * M;
+  const uint8_t* rb = r + b * N;
+  uint16_t* myq = sQuery[warp][lane / G];
+
+  int rc[NPL], H[NPL], O[NPL], F[NPL], FO[NPL];
+#pragma unroll
+  for (int c = 0; c < NPL; ++c) {
+    const int j = j0 + c;
+    rc[c] = column_entry<kTable>(j < N ? (int)rb[j] : 4, match, mismatch);
+    H[c] = 0;
+    O[c] = 0;
+    F[c] = kNeg + go;
+    FO[c] = 0;
+  }
+  const int np1 = N + 1;
+  const int nvalid = N - j0;
+  const int goe = go + ge;
+  int bH = 0, bPos = 0, bO = 0;  // this lane's best cell
+  // what the lane to the right takes next step
+  int hlast = 0, olast = 0, eout = 0, eoout = 0;
+  // H and origin of the row above, left of the first column
+  int hprev = 0, oprev = 0;
+
+  // One step. kAll: every lane of the warp has a row (G-1 <= t < M), so
+  // the lane's own test and the branch around the row are left out.
+  auto step = [&](int t, auto all) {
+    constexpr bool kAll = decltype(all)::value;
+    const int i = t - lg;
+    const bool active = kAll || (unsigned)i < (unsigned)M;
+    int hleft = __shfl_up_sync(kFull, hlast, 1, G);
+    int oleft = __shfl_up_sync(kFull, olast, 1, G);
+    int e = __shfl_up_sync(kFull, eout, 1, G);
+    int eo = __shfl_up_sync(kFull, eoout, 1, G);
+    if (lg == 0) {
+      hleft = 0;
+      oleft = 0;
+      e = kNeg + go;  // column 0 has no column to its left
+      eo = 0;
+      if (kWide) {
+        if (warp > 0 && active) {
+          const int4 v = sRing[(warp - 1) * kEdgeRows + (i & (kEdgeRows - 1))];
+          hleft = v.x;
+          oleft = v.y;
+          e = v.z;
+          eo = v.w;
+        }
+      }
+    }
+    if (active) {
+      const int qi = myq[i & (2 * kChunk - 1)];
+      align_row<NPL, kTable, kGuard>(rc, H, O, F, FO, qi, hprev, oprev, e,
+                                     eo, i * np1 + j0, match, mismatch, goe,
+                                     ge, nvalid, bH, bPos, bO);
+      hlast = H[NPL - 1];
+      olast = O[NPL - 1];
+      eout = e;
+      eoout = eo;
+      if (kWide) {
+        if (lane == 31 && warp + 1 < nwarps)
+          sRing[warp * kEdgeRows + (i & (kEdgeRows - 1))] =
+              make_int4(hlast, olast, eout, eoout);
+      }
+    }
+    // the left lane's row i is this lane's row above next step
+    hprev = hleft;
+    oprev = oleft;
+  };
+
+  const int T = M + G - 1;
+  for (int t0 = 0; t0 < T; t0 += kChunk) {
+    const int tend = min(t0 + kChunk, T);
+    __syncwarp();
+    stage_query<G, kTable>(myq, qb, M, t0, lg);
+    if (kWide) wait_for_neighbours(sProgress, warp, nwarps, tend, T);
+    __syncwarp();
+    int t = t0;
+    for (; t < min(tend, G - 1); ++t) step(t, std::false_type());
+    for (; t < min(tend, M); ++t) step(t, std::true_type());
+    for (; t < tend; ++t) step(t, std::false_type());
+    if (kWide) publish_progress(sProgress, warp, lane, tend);
+  }
+
+#pragma unroll
+  for (int d = G / 2; d > 0; d >>= 1) {
+    const int oh = __shfl_xor_sync(kFull, bH, d, G);
+    const int opos = __shfl_xor_sync(kFull, bPos, d, G);
+    const int oo = __shfl_xor_sync(kFull, bO, d, G);
+    take_better(bH, bPos, bO, oh, opos, oo);
+  }
+  if (!kWide) {
+    if (lg == 0 && live) write_align(out + b * 5, bH, bPos, bO, np1);
+    return;
+  }
+  if (lane == 0) {
+    sBest[0][warp] = bH;
+    sBest[1][warp] = bPos;
+    sBest[2][warp] = bO;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < nwarps; ++w)
+    take_better(bH, bPos, bO, sBest[0][w], sBest[1][w], sBest[2][w]);
+  write_align(out + b * 5, bH, bPos, bO, np1);
+}
+
+template <int G, int NPL, bool kGuard>
+int launch_align(const uint8_t* q, const uint8_t* r, int32_t* out,
+                 long long B, int M, int N, int match, int mismatch, int go,
+                 int ge, cudaStream_t s) {
+  constexpr int kPerBlock = kScoreWarps * (32 / G);
+  const long long blocks = (B + kPerBlock - 1) / kPerBlock;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  sw_align_kernel<G, NPL, false, kGuard>
+      <<<(unsigned)blocks, 32 * kScoreWarps, 0, s>>>(q, r, out, B, M, N,
+                                                     match, mismatch, go, ge);
+  return (int)cudaGetLastError();
+}
+
+template <bool kGuard>
+int launch_align_wide(const uint8_t* q, const uint8_t* r, int32_t* out,
+                      long long B, int M, int N, int match, int mismatch,
+                      int go, int ge, cudaStream_t s) {
+  // 16 columns a lane: fewer stripes, less lag between them and a step's
+  // shuffles shared by more cells than 8 or 4 (tune_sw on an H100)
+  constexpr int kNPL = 16;
+  constexpr int kStripe = 32 * kNPL;
+  const int warps = (N + kStripe - 1) / kStripe;
+  if (N > kWideMaxN || B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // at most 7 edges of 256 rows (28 KB): within the 48 KB of dynamic
+  // shared memory a launch gets without cudaFuncSetAttribute
+  static_assert((kWideMaxN / kStripe - 1) * kEdgeRows * sizeof(int4) <=
+                    48 * 1024,
+                "K1 wide: the edge ring needs more than 48 KB");
+  const size_t ring = (size_t)(warps - 1) * kEdgeRows * sizeof(int4);
+  sw_align_kernel<32, kNPL, true, kGuard>
+      <<<(unsigned)B, 32 * warps, ring, s>>>(q, r, out, B, M, N, match,
+                                             mismatch, go, ge);
+  return (int)cudaGetLastError();
+}
+
+// (lanes a group, columns a lane) of K1 for N <= 512, narrowest first: the
+// first pair with G * NPL >= N runs. K1 holds five registers a column (the
+// table word, H, O, F and F's origin) where K2 holds three.
+// 32 lanes an alignment: align's batches on the main path are small
+// (B = 61 to 242 a launch on `big`, N = 256 for 150-bp reads padded to
+// 192 rows and 32 columns either side), and a group of 8 lanes leaves most
+// of the card idle there: at B = 152 and N = 256 32 x 8 took 0.054 ms
+// where 8 x 32 took 0.144 ms on an H100 (tune_sw).
+#if defined(LHT_SWA_G) && defined(LHT_SWA_NPL)
+#define LHT_ALIGN_PAIRS(X) X(LHT_SWA_G, LHT_SWA_NPL)
+#else
+#define LHT_ALIGN_PAIRS(X) \
+  X(32, 2) X(32, 4) X(32, 6) X(32, 8) X(32, 12) X(32, 16)
+#endif
+
+// ------------------------------------------------------------------ K2
+
 // One query row against the NPL columns of a lane. hd: H of the row above
 // at the column left of the lane's first; e: E of this row at the lane's
 // first column. Leaves the lane's H and F for the next row and returns E
@@ -514,13 +504,7 @@ __device__ __forceinline__ int score_row(const int (&rc)[NPL], int (&H)[NPL],
                                          int ge) {
 #pragma unroll
   for (int c = 0; c < NPL; ++c) {
-    int sub;
-    if (kTable)
-      asm("prmt.b32 %0, %1, %2, %3;"
-          : "=r"(sub)
-          : "r"(rc[c]), "r"(mismatch), "r"(qi));
-    else
-      sub = rc[c] == qi ? match : mismatch;
+    const int sub = substitution<kTable>(rc[c], qi, match, mismatch);
     const int h1 = __viaddmax_s32_relu(hd, sub, F[c]);  // max(hd+sub, F, 0)
     hd = H[c];
     const int h = max(h1, e);
@@ -651,33 +635,13 @@ sw_score_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
     const int tend = min(t0 + kChunk, T);
     __syncwarp();
     stage_query<G, kTable>(myq, qb, M, t0, lg);
-    if (kWide) {
-      // the left stripe's last lane is 31 steps behind its first: rows up
-      // to tend-1 are in the ring once that warp finished tend+31 steps
-      if (warp > 0) {
-        const int need = min(tend + 31, T);
-        while (*(volatile int*)&sProgress[warp - 1] < need) __nanosleep(20);
-      }
-      // these steps write rows up to tend-32: the right stripe must have
-      // read the rows kEdgeRows before them
-      if (warp + 1 < nwarps) {
-        const int need = tend - 31 - kEdgeRows;
-        while (*(volatile int*)&sProgress[warp + 1] < need) __nanosleep(20);
-      }
-      __threadfence_block();
-    }
+    if (kWide) wait_for_neighbours(sProgress, warp, nwarps, tend, T);
     __syncwarp();
     int t = t0;
     for (; t < min(tend, G - 1); ++t) step(t, std::false_type());
     for (; t < min(tend, M); ++t) step(t, std::true_type());
     for (; t < tend; ++t) step(t, std::false_type());
-    if (kWide) {
-      __syncwarp();
-      if (lane == 31) {
-        __threadfence_block();
-        *(volatile int*)&sProgress[warp] = tend;
-      }
-    }
+    if (kWide) publish_progress(sProgress, warp, lane, tend);
   }
 
 #pragma unroll
@@ -795,12 +759,12 @@ template <bool kGuard>
 int launch_score_wide(const uint8_t* q, const uint8_t* r, int32_t* out,
                       long long B, int M, int N, int match, int mismatch,
                       int go, int ge, cudaStream_t s) {
-  constexpr int kStripe = 32 * kScoreWideNPL;
+  constexpr int kStripe = 32 * LHT_SW_WIDE_NPL;
   const int warps = (N + kStripe - 1) / kStripe;
   if (warps > kWideMaxWarps || B > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const size_t ring = (size_t)(warps - 1) * kEdgeRows * sizeof(int2);
-  sw_score_kernel<32, kScoreWideNPL, true, kGuard>
+  sw_score_kernel<32, LHT_SW_WIDE_NPL, true, kGuard>
       <<<(unsigned)B, 32 * warps, ring, s>>>(q, r, out, B, M, N, match,
                                              mismatch, go, ge);
   return (int)cudaGetLastError();
@@ -827,31 +791,24 @@ extern "C" int lht_sw_align(const uint8_t* q, const uint8_t* r, int32_t* out,
                             int mismatch, int go, int ge, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  const bool plain = table_fits(match, mismatch, go, ge);
   if (N > kNarrowMaxN) {
-    if (N > kWideMaxN || B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const int warps = (N + 32 * kWideNPL - 1) / (32 * kWideNPL);
-    sw_align_wide_kernel<<<(unsigned)B, 32 * warps, 0, s>>>(
-        q, r, out, M, N, match, mismatch, go, ge);
-    return (int)cudaGetLastError();
+    if (N > kWideMaxN) return (int)cudaErrorInvalidValue;
+    return plain ? launch_align_wide<false>(q, r, out, B, M, N, match,
+                                             mismatch, go, ge, s)
+                 : launch_align_wide<true>(q, r, out, B, M, N, match,
+                                           mismatch, go, ge, s);
   }
-  const long long blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const dim3 grid((unsigned)blocks), block(32 * kWarpsPerBlock);
-#define LHT_ALIGN_CASE(NPL)                                                  \
-  case NPL:                                                                  \
-    sw_align_kernel<NPL><<<grid, block, 0, s>>>(q, r, out, B, M, N, match,   \
-                                                mismatch, go, ge);           \
-    break;
-  switch (columns_per_lane(N)) {
-    LHT_ALIGN_CASE(1)
-    LHT_ALIGN_CASE(2)
-    LHT_ALIGN_CASE(4)
-    LHT_ALIGN_CASE(8)
-    LHT_ALIGN_CASE(16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (!plain)
+    return launch_align<32, 16, true>(q, r, out, B, M, N, match, mismatch,
+                                      go, ge, s);
+#define LHT_ALIGN_CASE(G, NPL)                                              \
+  if (N <= G * NPL)                                                         \
+    return launch_align<G, NPL, false>(q, r, out, B, M, N, match, mismatch, \
+                                       go, ge, s);
+  LHT_ALIGN_PAIRS(LHT_ALIGN_CASE)
 #undef LHT_ALIGN_CASE
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int lht_sw_score(const uint8_t* q, const uint8_t* r, int32_t* out,
@@ -859,19 +816,7 @@ extern "C" int lht_sw_score(const uint8_t* q, const uint8_t* r, int32_t* out,
                             int mismatch, int go, int ge, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  // A column past N holds a code that never matches. Where a mismatch and
-  // both gap steps cost something (or nothing), its H is at most the H of
-  // a cell above or left of it, so it cannot raise the maximum and no cell
-  // is masked. Other parameters take the guarded kernels, which leave
-  // those columns out of the maximum.
-  const bool decays = mismatch <= 0 && ge <= 0 && go + ge <= 0;
-#if LHT_SW_TABLE
-  // the table holds a score in a byte
-  const bool plain = decays && match >= -128 && match <= 127 &&
-                     mismatch >= -128;
-#else
-  const bool plain = decays;
-#endif
+  const bool plain = table_fits(match, mismatch, go, ge);
   if (N > kNarrowMaxN) {
     if (N > kWideMaxN) return (int)cudaErrorInvalidValue;
     return plain ? launch_score_wide<false>(q, r, out, B, M, N, match,

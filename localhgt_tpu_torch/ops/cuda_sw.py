@@ -5,22 +5,26 @@
 CUDA kernel of `csrc/sw.cu` for CUDA tensors and its plain torch version
 (`sw_align_plain`, `sw_score_plain`: the Pallas bodies over [B, N]
 tensors) for CPU tensors, and raises on anything else.
-Each wrapper counts its kernel launches in `<wrapper>.launches`, and
-those of the wide-reference variant (N > NARROW_MAX_N) also in
-`<wrapper>.wide_launches`; `sw_score.shapes` counts K2's launches by
-(B, M, N).
+Each wrapper counts its kernel launches in `<wrapper>.launches`, those of
+the wide-reference variant (N > NARROW_MAX_N) also in
+`<wrapper>.wide_launches`, and its launches by (B, M, N) in
+`<wrapper>.shapes`.
 
-Both kernels are bound by the integer instructions they execute. K1 runs
-one warp per alignment row by row (one block per alignment above
-NARROW_MAX_N columns). K2 runs an anti-diagonal wavefront: a group of 8,
-16 or 32 lanes per alignment with as many columns a lane as make the
-group as wide as the window, lane l on query row t - l at step t, the
-recurrence in the Gotoh form on Hopper's fused add-max instructions, the
-substitution score by one byte permute out of a table word a column;
-above NARROW_MAX_N columns one block per alignment, a warp a stripe of
-256 columns, the stripes joined through a ring in shared memory without a
-block barrier. The header of csrc/sw.cu has the details and the cell's
-instruction count.
+Both kernels are bound by the integer instructions they execute, and both
+run an anti-diagonal wavefront: a group of 8, 16 or 32 lanes per
+alignment with as many columns a lane as make the group as wide as the
+window (K1: always 32 lanes, so that align's small batches on the main
+path fill the card), lane l on query row t - l
+at step t, the recurrence in the Gotoh form on Hopper's DPX
+instructions, the substitution score by one byte permute out of a table
+word a column; above NARROW_MAX_N columns one block
+per alignment, a warp a stripe, the stripes joined through a ring in
+shared memory without a block barrier. K1 also carries the origin of H, E
+and F (the packed index of the cell that started the alignment): each
+maximum with its winner is one `__vibmax_s32` and a select, with the
+operands in the order that reproduces the Pallas tie rules, so its start
+coordinates are exact. The header of csrc/sw.cu has the recurrence, the
+tie rules and the cell's instruction count.
 """
 
 from __future__ import annotations
@@ -212,6 +216,7 @@ def sw_align(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-4,
     launch(_lib(), "lht_sw_align", q, r, out, *kw.values())
     sw_align.launches += 1
     sw_align.wide_launches += int(r.shape[1] > NARROW_MAX_N)
+    sw_align.shapes[(q.shape[0], q.shape[1], r.shape[1])] += 1
     return out
 
 
@@ -235,4 +240,5 @@ def sw_score(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-2,
 
 sw_align.launches = sw_align.wide_launches = 0
 sw_score.launches = sw_score.wide_launches = 0
+sw_align.shapes = collections.Counter()
 sw_score.shapes = collections.Counter()

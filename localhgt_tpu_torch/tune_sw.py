@@ -1,32 +1,38 @@
-"""Time kernel K2 (`lht_sw_score` of csrc/sw.cu) in its mappings on one card.
+"""Time kernels K1 and K2 (`lht_sw_align`, `lht_sw_score` of csrc/sw.cu)
+in their mappings on one card.
 
     python -m localhgt_tpu_torch.tune_sw [--real] [--parent DIR]
                                          [--sass out.txt] [--json out.json]
     python -m localhgt_tpu_torch.tune_sw --count out.txt      # no card
 
-Builds csrc/sw.cu once per variant with `-DLHT_SW_*` flags (lanes a group
-and columns a lane, wavefront or row-by-row scan, the substitution score
-by table or by compare and select, columns a lane of the wide mapping),
-all nvcc runs started together, and the package's own variant also with
-`-Xptxas -v` (registers and spills of every kernel). Every variant is held
-exactly against
-`sw_score_plain` and then timed with CUDA events at B=8,192 for M=N in 96,
-128, 160 and at B=512, M=N=1,000, on seeded reads planted in their windows.
-`--parent DIR` times `sw_score` of another checkout of the package (a
-subprocess in DIR) on the same inputs. `--real` also simulates the `big`
-fixture, runs `bkp` at k=32 and prints the (B, M, N) of every K2 launch.
-`--sass` writes `cuobjdump -sass` of the package's variant to a file and
-prints, for K1's kernels, the opcodes of every loop (what the bound's
-count of integer-pipe instructions a cell is read from); `--count` prints
-the same from such a file and needs no card. It prints the card's name and
-power limit. Imports nothing of JAX.
+Builds csrc/sw.cu once per variant with `-DLHT_SW_*` / `-DLHT_SWA_*` flags
+(lanes a group and columns a lane, wavefront or row-by-row scan, the
+substitution score by table or by compare and select, columns a lane of
+the wide mappings), all nvcc runs started together, each with `-Xptxas
+-v` (registers and spills of every kernel). Every variant is held exactly
+against the plain version of the kernel it tunes (`sw_score_plain` for
+K2, `sw_align_plain` for K1), on planted and on tie-heavy reads, and then
+timed with CUDA events: K2 at B=8,192 for M=N in 96, 128, 160 and at
+B=512, M=N=1,000; K1 at M=192, N=256 (align's windows) for B from the
+main path's 152 to 8,192, and at B=512, M=N=1,000 (validate_events').
+`--parent DIR` times `sw_score` and `sw_align` of another checkout of the
+package (a subprocess in DIR) on the same inputs, before and after the
+variants. `--real` also simulates the `big` fixture, runs `bkp` at k=32
+and prints the (B, M, N) of every K1 and K2 launch. `--sass` writes
+`cuobjdump -sass` of the package's variant to a file and prints, for K1's
+kernels, the opcodes of every loop and the integer-pipe instructions a
+cell (what the bound's count is read from); `--count` prints the same
+from such a file and needs no card. It prints the card's name and power
+limit. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -39,30 +45,46 @@ import torch
 
 from localhgt_tpu_torch.tune_vote import BIG, card_line, time_ms
 
-# name -> (nvcc -D flags, the widest N the variant takes or None, serves
-# narrow windows, serves wide windows). "package" is what the package builds.
+# name -> (nvcc -D flags, kernels it tunes, the widest N the variant takes
+# or None, serves narrow windows, serves wide windows). "package" is what
+# the package builds.
 VARIANTS = {
-    "package": ((), None, True, True),
-    "compare_select": (("-DLHT_SW_TABLE=0",), None, True, True),
-    "g32_npl5": (("-DLHT_SW_G=32", "-DLHT_SW_NPL=5"), 160, True, False),
-    "g16_npl6": (("-DLHT_SW_G=16", "-DLHT_SW_NPL=6"), 96, True, False),
-    "g16_npl8": (("-DLHT_SW_G=16", "-DLHT_SW_NPL=8"), 128, True, False),
-    "g16_npl10": (("-DLHT_SW_G=16", "-DLHT_SW_NPL=10"), 160, True, False),
-    "g4_npl24": (("-DLHT_SW_G=4", "-DLHT_SW_NPL=24"), 96, True, False),
-    "g4_npl32": (("-DLHT_SW_G=4", "-DLHT_SW_NPL=32"), 128, True, False),
-    "g4_npl40": (("-DLHT_SW_G=4", "-DLHT_SW_NPL=40"), 160, True, False),
+    "package": ((), "K1 K2", None, True, True),
+    "compare_select": (("-DLHT_SW_TABLE=0",), "K1 K2", None, True, True),
+    "g32_npl5": (("-DLHT_SW_G=32", "-DLHT_SW_NPL=5"), "K2", 160, True, False),
+    "g16_npl6": (("-DLHT_SW_G=16", "-DLHT_SW_NPL=6"), "K2", 96, True, False),
+    "g16_npl8": (("-DLHT_SW_G=16", "-DLHT_SW_NPL=8"), "K2", 128, True, False),
+    "g16_npl10": (("-DLHT_SW_G=16", "-DLHT_SW_NPL=10"), "K2", 160, True,
+                  False),
+    "g4_npl24": (("-DLHT_SW_G=4", "-DLHT_SW_NPL=24"), "K2", 96, True, False),
+    "g4_npl32": (("-DLHT_SW_G=4", "-DLHT_SW_NPL=32"), "K2", 128, True, False),
+    "g4_npl40": (("-DLHT_SW_G=4", "-DLHT_SW_NPL=40"), "K2", 160, True, False),
     "scan_g16_npl10": (("-DLHT_SW_SCAN=1", "-DLHT_SW_G=16",
-                        "-DLHT_SW_NPL=10"), 160, True, False),
-    "wide_npl16": (("-DLHT_SW_WIDE_NPL=16",), None, False, True),
+                        "-DLHT_SW_NPL=10"), "K2", 160, True, False),
+    "wide_npl16": (("-DLHT_SW_WIDE_NPL=16",), "K2", None, False, True),
+    "align_g8_npl32": (("-DLHT_SWA_G=8", "-DLHT_SWA_NPL=32"), "K1", 256,
+                       True, False),
+    "align_g16_npl16": (("-DLHT_SWA_G=16", "-DLHT_SWA_NPL=16"), "K1", 256,
+                        True, False),
 }
-# (B, M, N): the accbkp window widths of 150-bp reads, and the widest
-# junction window of validate_events
-SHAPES = [(8192, 96, 96), (8192, 128, 128), (8192, 160, 160),
-          (512, 1000, 1000)]
+# kernel -> (entry point, plain version, [(B, M, N)]): K2 at the accbkp
+# window widths of 150-bp reads and the widest junction window of
+# validate_events; K1 at align's windows (150-bp reads padded to 192, 32
+# columns either side) in a full tile of 8,192, at the median batch of the
+# main path (152; 61 to 242 on `big`) and at batches between, and at
+# validate_events' windows
+KERNELS = {
+    "K2": ("lht_sw_score", "sw_score_plain",
+           [(8192, 96, 96), (8192, 128, 128), (8192, 160, 160),
+            (512, 1000, 1000)]),
+    "K1": ("lht_sw_align", "sw_align_plain",
+           [(8192, 192, 256), (152, 192, 256), (1024, 192, 256),
+            (2048, 192, 256), (4096, 192, 256), (512, 1000, 1000)]),
+}
 PARENT_SNIPPET = """
 import json, sys, torch
 sys.path.insert(0, {here!r})
-from localhgt_tpu_torch.tune_sw import SHAPES, device_inputs
+from localhgt_tpu_torch.tune_sw import KERNELS, device_inputs
 from localhgt_tpu_torch.tune_vote import time_ms
 sys.path.pop(0)
 for m in [m for m in sys.modules if m.startswith("localhgt_tpu_torch")]:
@@ -70,9 +92,10 @@ for m in [m for m in sys.modules if m.startswith("localhgt_tpu_torch")]:
 from localhgt_tpu_torch.ops import cuda_sw
 dev = torch.device("cuda:0")
 out = {{}}
-for shape in SHAPES:
-    q, r = device_inputs(dev, *shape)
-    out[str(shape)] = time_ms(lambda: cuda_sw.sw_score(q, r), 20)
+for kernel, fn in (("K2", cuda_sw.sw_score), ("K1", cuda_sw.sw_align)):
+    for shape in KERNELS[kernel][2]:
+        q, r = device_inputs(dev, *shape)
+        out[kernel + " " + str(shape)] = time_ms(lambda: fn(q, r), 20)
 print(json.dumps({{"parent_ms": out}}))
 """
 
@@ -110,13 +133,12 @@ def build_variants() -> tuple:
     from localhgt_tpu_torch.ops import cuda_sw
 
     def one(name):
-        flags = VARIANTS[name][0]
-        if name == "package":
-            flags += ("-Xptxas", "-v")
-        path = _build.build("sw", flags)
+        # -v: ptxas prints every kernel's registers and spills
+        path = _build.build("sw", VARIANTS[name][0] + ("-Xptxas", "-v"))
         lib = ctypes.CDLL(str(path))
-        lib.lht_sw_score.argtypes = cuda_sw.SIGNATURE
-        lib.lht_sw_score.restype = ctypes.c_int
+        for fn, _, _ in KERNELS.values():
+            getattr(lib, fn).argtypes = cuda_sw.SIGNATURE
+            getattr(lib, fn).restype = ctypes.c_int
         return lib, path
 
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
@@ -124,24 +146,32 @@ def build_variants() -> tuple:
     return {n: lib for n, (lib, _) in built.items()}, built["package"][1]
 
 
-def score(lib, q, r, params=(1, -2, -3, -1)):
+def run(lib, kernel: str, q, r):
+    """One launch of `kernel` (K1 or K2) of a loaded build at the
+    parameters of its caller (align's, accbkp's)."""
     from localhgt_tpu_torch.ops import cuda_sw
 
-    out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
-    cuda_sw.launch(lib, "lht_sw_score", q, r, out, *params)
+    if kernel == "K1":
+        out = torch.empty((q.shape[0], 5), dtype=torch.int32,
+                          device=q.device)
+        cuda_sw.launch(lib, "lht_sw_align", q, r, out, 1, -4, -6, -1)
+    else:
+        out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
+        cuda_sw.launch(lib, "lht_sw_score", q, r, out, 1, -2, -3, -1)
     return out
 
 
-def takes(name: str, N: int) -> bool:
+def takes(name: str, kernel: str, N: int) -> bool:
     from localhgt_tpu_torch.ops.cuda_sw import NARROW_MAX_N
 
-    _, max_n, narrow, wide = VARIANTS[name]
-    return (wide if N > NARROW_MAX_N else narrow) and (
+    _, kernels, max_n, narrow, wide = VARIANTS[name]
+    return kernel in kernels.split() and (
+        wide if N > NARROW_MAX_N else narrow) and (
         max_n is None or N <= max_n)
 
 
 def real_shapes(dev) -> dict:
-    """Run `bkp` on `big` at k=32; {(B, M, N): K2 launches}."""
+    """Run `bkp` on `big` at k=32; {kernel: {(B, M, N): launches}}."""
     from localhgt_tpu_torch import cli
     from localhgt_tpu_torch.ops import cuda_sw
     from localhgt_tpu_torch.sim.simulate import SimParams, simulate_sample
@@ -150,30 +180,32 @@ def real_shapes(dev) -> dict:
     try:
         ref, fq1, fq2, _ = simulate_sample(work, "big", SimParams(**BIG))
         cuda_sw.sw_score.shapes.clear()
+        cuda_sw.sw_align.shapes.clear()
         rc = cli.main(["bkp", "-r", ref, "--fq1", fq1, "--fq2", fq2, "-s",
                        "big", "-o", work, "-k", "32", "--device", str(dev)])
         if rc != 0:
             raise SystemExit(f"bkp exited {rc}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return dict(cuda_sw.sw_score.shapes)
+    return {"K1": dict(cuda_sw.sw_align.shapes),
+            "K2": dict(cuda_sw.sw_score.shapes)}
 
 
 # SASS opcodes that only the SM's 64-lane integer pipe issues
-INT_PIPE_ONLY = ("ISETP", "SEL", "VIMNMX", "VIADDMNMX", "PLOP3", "LOP3",
-                 "PRMT", "IMNMX", "SHF", "LEA")
-K1_KERNELS = ("sw_align_kernelILi8E", "sw_align_wide_kernel")
+INT_PIPE_ONLY = ("ISETP", "SEL", "VIMNMX", "VIMNMX3", "VIADDMNMX", "PLOP3",
+                 "LOP3", "PRMT", "IMNMX", "SHF", "LEA")
+# K1's kernels as the package builds them for align's windows and for
+# validate_events' (mangled template arguments), with their columns a lane
+K1_KERNELS = {"sw_align_kernelILi32ELi8ELb0ELb0E": 8,
+              "sw_align_kernelILi32ELi16ELb1ELb0E": 16}
 
 
 def loop_opcodes(sass: str, kernel: str) -> list:
     """[(start, end, {opcode: count})] of every loop (a backward branch
     and what lies between it and its target) of the first function of a
     `cuobjdump -sass` text whose mangled name holds `kernel`."""
-    import collections
-    import re
-
     text = sass.split("Function : ")
-    body = next(t for t in text[1:] if kernel in t.split("\n", 1)[0])
+    body = next((t for t in text[1:] if kernel in t.split("\n", 1)[0]), "")
     ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
         r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)[^;]*;", body)]
     targets = {int(m.group(1), 16): int(m.group(2), 16) for m in re.finditer(
@@ -189,12 +221,30 @@ def loop_opcodes(sass: str, kernel: str) -> list:
 
 
 def print_k1_loops(sass: str) -> None:
-    for kernel in K1_KERNELS:
-        for to, at, ops in loop_opcodes(sass, kernel):
+    """Every loop of K1's kernels; a loop that steps a lane over its row
+    (NPL cells) also with its integer-pipe-only instructions a cell."""
+    for kernel, npl in K1_KERNELS.items():
+        loops = loop_opcodes(sass, kernel)
+        if not loops:
+            print(f"[sass] {kernel}: no such function or no loop", flush=True)
+        for to, at, ops in loops:
             only = sum(n for op, n in ops.items() if op in INT_PIPE_ONLY)
             print(f"[sass] {kernel} loop {to:#x}-{at:#x}: "
                   f"{sum(ops.values())} instructions, {only} of them on the "
-                  f"integer pipe alone: {json.dumps(ops)}", flush=True)
+                  f"integer pipe alone ({only / npl:.2f} a cell if the loop "
+                  f"is one step of {npl} columns): {json.dumps(ops)}",
+                  flush=True)
+
+
+def parent_ms(parent: str) -> dict:
+    """{"K1 (B, M, N)": ms, ...} of the checkout in `parent`."""
+    res = subprocess.run(
+        [sys.executable, "-c", PARENT_SNIPPET.format(
+            here=str(Path(__file__).resolve().parent.parent))],
+        cwd=parent, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise SystemExit(f"parent timing failed:\n{res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])["parent_ms"]
 
 
 def main(argv=None) -> int:
@@ -203,9 +253,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--real", action="store_true",
-                    help="also print the K2 launch shapes of bkp on big")
+                    help="also print the K1 and K2 launch shapes of bkp on "
+                    "big")
     ap.add_argument("--parent", default="",
-                    help="another checkout whose sw_score is timed too")
+                    help="another checkout whose sw_score and sw_align are "
+                    "timed too")
     ap.add_argument("--sass", default="",
                     help="write cuobjdump -sass of the package's build here")
     ap.add_argument("--count", default="",
@@ -229,39 +281,40 @@ def main(argv=None) -> int:
         print_k1_loops(res.stdout)
 
     out = {"card": card_line(), "times_ms": {}}
-    for shape in SHAPES:
-        for tie in (True, False):
-            q, r = device_inputs(dev, *shape, tie_heavy=tie)
-            want = cuda_sw.sw_score_plain(q, r)
-            for name, lib in libs.items():
-                if not takes(name, shape[2]):
-                    continue
-                got = score(lib, q, r)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise SystemExit(f"variant {name} disagrees with the "
-                                     f"plain version at {shape}")
-        for name, lib in libs.items():  # timed on the 4-letter input
-            if takes(name, shape[2]):
-                ms = time_ms(lambda: score(lib, q, r), 20)
-                out["times_ms"].setdefault(str(shape), {})[name] = ms
-                print(f"[tune] {shape} {name}: {ms:.4f} ms", flush=True)
+    if args.parent:  # parent, variants, parent: in turns on one card
+        out["parent_ms"] = parent_ms(args.parent)
+    for kernel, (_, plain, shapes) in KERNELS.items():
+        for shape in shapes:
+            key = f"{kernel} {shape}"
+            for tie in (True, False):
+                q, r = device_inputs(dev, *shape, tie_heavy=tie)
+                want = getattr(cuda_sw, plain)(q, r)
+                for name, lib in libs.items():
+                    if not takes(name, kernel, shape[2]):
+                        continue
+                    got = run(lib, kernel, q, r)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise SystemExit(f"variant {name} disagrees with "
+                                         f"{plain} at {shape}")
+            for name, lib in libs.items():  # timed on the 4-letter input
+                if takes(name, kernel, shape[2]):
+                    ms = time_ms(lambda: run(lib, kernel, q, r), 20)
+                    out["times_ms"].setdefault(key, {})[name] = ms
+                    print(f"[tune] {key} {name}: {ms:.4f} ms", flush=True)
     if args.parent:
-        res = subprocess.run(
-            [sys.executable, "-c", PARENT_SNIPPET.format(
-                here=str(Path(__file__).resolve().parent.parent))],
-            cwd=args.parent, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise SystemExit(f"parent timing failed:\n{res.stderr}")
-        out.update(json.loads(res.stdout.strip().splitlines()[-1]))
-        for shape, ms in out["parent_ms"].items():
-            print(f"[tune] {shape} parent's sw_score: {ms:.4f} ms",
-                  flush=True)
+        out["parent_again_ms"] = parent_ms(args.parent)
+        for key, ms in out["parent_ms"].items():
+            print(f"[tune] {key} parent: {ms:.4f} ms before the variants, "
+                  f"{out['parent_again_ms'][key]:.4f} ms after", flush=True)
     if args.real:
         shapes = real_shapes(dev)
-        out["real_launch_shapes"] = {str(k): v for k, v in shapes.items()}
-        for shape, n in sorted(shapes.items()):
-            print(f"[real] K2 (B, M, N) = {shape}: {n} launches", flush=True)
+        out["real_launch_shapes"] = {
+            k: {str(s): n for s, n in v.items()} for k, v in shapes.items()}
+        for kernel, by_shape in shapes.items():
+            for shape, n in sorted(by_shape.items()):
+                print(f"[real] {kernel} (B, M, N) = {shape}: {n} launches",
+                      flush=True)
     print(json.dumps(out))
     if args.json:
         with open(args.json, "w") as f:

@@ -138,6 +138,86 @@ def test_sw_kernels_raise_above_the_widest_reference(dev):
     assert cuda_sw.sw_align.launches == n0
 
 
+# K1's (lanes a group, columns a lane) pairs for N <= 512, as
+# LHT_ALIGN_PAIRS in csrc/sw.cu lists them
+ALIGN_PAIRS = [(32, 2), (32, 4), (32, 6), (32, 8), (32, 12), (32, 16)]
+ALIGN_SHAPES = {
+    # every pair's widest window and the width just above it, with few
+    # alignments and with many
+    **{f"n{g * npl}": (37, 60, g * npl) for g, npl in ALIGN_PAIRS},
+    **{f"n{g * npl + 1}": (37, 60, g * npl + 1)
+       for g, npl in ALIGN_PAIRS[:-1]},
+    **{f"n{g * npl}_many": (2100, 30, g * npl) for g, npl in ALIGN_PAIRS},
+    **{f"n{g * npl + 1}_many": (2100, 30, g * npl + 1)
+       for g, npl in ALIGN_PAIRS[:-1]},
+    "n1": (20, 30, 1), "n31": (20, 30, 31), "n511": (9, 100, 511),
+    # align's windows: 150-bp reads padded to 192 rows, 32 columns either
+    # side, at a batch of the main path and at the one-launch tile
+    "align_window": (152, 192, 256), "align_window_many": (2048, 192, 256),
+    # the wide mapping and its stripe boundaries (512 columns a warp; K2's
+    # 256)
+    "n513": (9, 150, 513), "n767": (5, 200, 767), "n768": (5, 200, 768),
+    "n769": (5, 200, 769), "n1000": (12, 1000, 1000),
+    "n1024": (4, 300, 1024), "n1025": (4, 300, 1025),
+    "n4096": (3, 256, 4096),
+    # more query rows than the ring between two stripes holds: it wraps,
+    # and the left stripe waits for the right one
+    "long_m_wide": (6, 1500, 600),
+    # one query row; more query rows than a staged chunk
+    "m1": (9, 1, 200), "m1_wide": (4, 1, 700), "long_m_narrow": (20, 700, 96),
+    # B that is no multiple of the alignments a block holds, down to one
+    "ragged_b_many": (2061, 20, 32), "ragged_b_n192": (2055, 20, 192),
+    "ragged_b_few": (3, 60, 384), "one_alignment": (1, 20, 160),
+}
+# SCORE_PARAMS and a set whose scores do not fit a byte of the table
+ALIGN_PARAMS = SCORE_PARAMS + [(200, -300, -500, -30)]
+
+
+@pytest.mark.parametrize("case", list(ALIGN_SHAPES))
+@pytest.mark.parametrize("alpha", [2, 4])
+def test_sw_align_kernel_matches_plain(dev, case, alpha):
+    """K1 against its plain version, origins included: the 2-letter
+    alphabet is tie-heavy, the parameters that do not decay or do not fit
+    a byte take the guarded kernels, and a row of code 4 scores 0 where
+    scores decay."""
+    B, M, N = ALIGN_SHAPES[case]
+    rng = np.random.default_rng(sum((B, M, N)) + alpha)
+    if M <= N:
+        q, r = _reads(rng, B, M, N, alpha)
+    else:  # the query is longer than the window: plant the window in it
+        r, q = _reads(rng, B, N, M, alpha)
+    r[rng.random(r.shape) < 0.01] = 4
+    q[B // 2] = 4  # a row that scores 0
+    qd, rd = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+    for params in ALIGN_PARAMS:
+        n0 = cuda_sw.sw_align.launches, cuda_sw.sw_align.wide_launches
+        n_shape = cuda_sw.sw_align.shapes[(B, M, N)]
+        got = cuda_sw.sw_align(qd, rd, *params)
+        assert cuda_sw.sw_align.launches == n0[0] + 1
+        assert cuda_sw.sw_align.wide_launches == n0[1] + int(
+            N > cuda_sw.NARROW_MAX_N)
+        assert cuda_sw.sw_align.shapes[(B, M, N)] == n_shape + 1
+        want = cuda_sw.sw_align_plain(qd, rd, *params)
+        _, mismatch, go, ge = params
+        if mismatch <= 0 and ge <= 0 and go + ge <= 0:  # scores decay
+            assert int(want[B // 2].abs().sum()) == 0
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_sw_align_kernel_on_unalignable_and_identical_rows(dev):
+    """All-N rows give five zeros; a read equal to its window aligns end
+    to end: (M, 0, M - 1, 0, M - 1)."""
+    for M in (160, 700):
+        q = torch.randint(0, 4, (24, M), dtype=torch.uint8, device=dev)
+        r = q.clone()
+        q[::2] = 4
+        got = cuda_sw.sw_align(q, r)
+        assert got[::2].abs().sum().item() == 0
+        want = torch.tensor([M, 0, M - 1, 0, M - 1], dtype=torch.int32,
+                            device=dev)
+        assert (got[1::2] == want).all()
+
+
 @pytest.mark.parametrize("seed", [1, 2])
 def test_vote_kernel_matches_plain(dev, seed):
     G = cuda_vote.KERNEL_SLOTS
