@@ -37,7 +37,17 @@ Phases, each fatal on failure:
      reads cut from the truth junctions (1% substitutions) plus as many
      from random reference windows: >= 90% validated, and K1's
      wide-reference variant launches;
- 10. `kmer_stats` at k=24 on one mate of `big`.
+ 10. `kmer_stats` at k=24 on one mate of `big`;
+ 11. `tools.mapq_calibration.run` on the card: its report equals the JAX
+     package's (reports/mapq_calibration.json) key for key, and K1
+     launches;
+ 12. `python -m localhgt_tpu_torch.bench --scale species20` as a child
+     process: it exits 0 and its record is on the card ("gpu", the card's
+     name), holds the fixture's 101,335 pairs, recall >= 0.90, FDR <=
+     0.05, all seven stage walls and count_step_gbps_device.
+Phase 5b runs between phases 6 and 7, on the fixture as simulated:
+`tools.loss_table` on `big` at k=32, whose summary must equal the JAX
+package's (reports/loss_table_big.json) key for key, with K1-K3 launched.
 Each phase's kernel launches are counted from 0 just before it and read
 just after. The last two lines of standard output are the kernels' JSON
 record and {"ok": true, "device": {...}}. Imports nothing of JAX and
@@ -61,6 +71,14 @@ import numpy as np
 
 BIG = dict(n_genomes=100, genome_len=1_000_000, hgt_num=50, depth=5,
            snp_rate=0.01, seed=42)
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the JAX package's own loss table on `big` and mapq report, both written
+# on the TPU (tools/loss_table.py, tools/mapq_calibration.py)
+LOSS_TABLE_REF = os.path.join(REPO, "reports", "loss_table_big.json")
+MAPQ_REF = os.path.join(REPO, "reports", "mapq_calibration.json")
+BENCH_SCALE, BENCH_PAIRS = "species20", 101_335
+BENCH_TIMEOUT_S = 300
+STAGES = ("count", "scan", "peakset", "vote", "align", "rawbkp", "accbkp")
 # the JAX package's own results on this fixture at k=32 (BENCH_r05.json)
 JAX_REFERENCE = {"intervals": 188, "subref_bp": 224_902, "final_bkps": 92,
                  "recall": 0.92}
@@ -597,6 +615,73 @@ def run_kmer_stats(dev, fq1: str) -> None:
         raise SystemExit("kmer_stats: empty rate out of (0, 1)")
 
 
+def run_loss_table(dev, ref, fq1, fq2, truth) -> None:
+    """Phase 5b: the loss table of `big` at k=32 against the JAX
+    package's."""
+    from localhgt_tpu_torch.config import Config, KmerConfig
+    from localhgt_tpu_torch.tools.loss_table import loss_table
+
+    with open(LOSS_TABLE_REF) as f:
+        want = json.load(f)
+    cfg = Config().replace(kmer=KmerConfig(k=KMER))
+    rec, launches, wall = drive(dev, lambda: loss_table(
+        ref, fq1, fq2, truth, cfg, dev, scale="big"))
+    same = sum(a == b for a, b in zip(rec["bkps"], want["bkps"]))
+    log(f"[loss_table] {wall:.1f} s: {json.dumps(rec['summary'])}; "
+        f"{same} of {len(want['bkps'])} per-breakpoint records equal the "
+        f"JAX package's; kernel launches: {json.dumps(launches)}")
+    if rec["summary"] != want["summary"]:
+        raise SystemExit(f"loss table summary differs from the JAX "
+                         f"package's: {json.dumps(want['summary'])}")
+    if min(launches[n] for n in ("sw_align", "sw_score", "vote_state")) <= 0:
+        raise SystemExit(f"a kernel of the loss table never launched: "
+                         f"{launches}")
+
+
+def run_mapq(dev, work: str) -> None:
+    """Phase 11: the mapq calibration against the JAX package's report."""
+    from localhgt_tpu_torch.tools import mapq_calibration
+
+    with open(MAPQ_REF) as f:
+        want = json.load(f)
+    rep, launches, wall = drive(dev, lambda: mapq_calibration.run(
+        os.path.join(work, "mapq"), dev))
+    log(f"[mapq] {wall:.1f} s: {json.dumps(rep)}; kernel launches: "
+        f"{json.dumps(launches)}")
+    if rep != want:
+        raise SystemExit(f"mapq report differs from the JAX package's: "
+                         f"{json.dumps(want)}")
+    if launches["sw_align"] <= 0:
+        raise SystemExit("K1 never launched in the mapq calibration")
+
+
+def run_bench() -> None:
+    """Phase 12: the bench at species20 as a user runs it, in a child
+    process."""
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "localhgt_tpu_torch.bench", "--scale",
+         BENCH_SCALE], cwd=REPO, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines:
+        raise SystemExit(f"bench exited {res.returncode}: "
+                         f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    rec = json.loads(lines[-1])
+    log(f"[bench] {BENCH_SCALE} in {wall:.1f} s: {lines[-1]}")
+    bad = [f"{key} = {rec.get(key)!r}" for key, ok in (
+        ("platform", rec.get("platform") == "gpu"),
+        ("n_pairs", rec.get("n_pairs") == BENCH_PAIRS),
+        ("recall", rec.get("recall", 0) >= MIN_RECALL),
+        ("fdr", rec.get("fdr", 1) <= MAX_FDR),
+        ("stage_walls", set(STAGES) <= set(rec.get("stage_walls", ()))),
+        ("count_step_gbps_device", rec.get("count_step_gbps_device", 0) > 0),
+        ("card", bool(rec.get("card")))) if not ok]
+    if bad:
+        raise SystemExit(f"bench record out of its gate: {bad}")
+
+
 def run_pipeline(dev, kernels: list) -> None:
     from localhgt_tpu_torch.sim.simulate import SimParams, simulate_sample
     from localhgt_tpu_torch import cli
@@ -614,6 +699,8 @@ def run_pipeline(dev, kernels: list) -> None:
         with open(ev) as f:
             log(f"[event] {sum(1 for _ in f) - 1} events")
         run_sharded(dev, ref, fq1, fq2, work, launches)
+        # before phase 7 rewrites the FASTQ files
+        run_loss_table(dev, ref, fq1, fq2, truth)
 
         t = time.perf_counter()
         planted = plant_adapters(fq1, fq2, ADAPTER_FRAC, 3)
@@ -627,6 +714,8 @@ def run_pipeline(dev, kernels: list) -> None:
         launches["sw_align_wide"] = run_validate(
             dev, work, ref, ev, truth)["sw_align_wide"]
         run_kmer_stats(dev, fq1)
+        run_mapq(dev, work)
+        run_bench()
         for rec in kernels:
             rec["launches"] = launches[rec["name"]]
     finally:

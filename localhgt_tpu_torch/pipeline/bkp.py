@@ -61,6 +61,92 @@ class CompactRows:
         return self.data[j]
 
 
+def align_reads(fq1: str, fq2: str, subref: align.SubRef,
+                index: align.SeedIndex, cache: dict | None, cfg: Config,
+                device, mesh=None):
+    """Align every read pair against the sub-reference, as `bkp` does:
+    the device seed prefilter, then align.align_batch (kernel K1) per mate
+    and batch. Returns (a1, a2, codes1, codes2, n_pairs): the mates'
+    tables with pairs that have no mapped end dropped (positionally
+    paired), the CompactRows of the split candidates' codes, and the
+    number of pairs read.
+
+    `cache`: extract's stage-A code cache ({fq path: [CachedBatch]}) or
+    None to re-read the FASTQ files; it is emptied before returning."""
+    tables1, tables2 = [], []
+    codes1, codes2 = [], []
+    n_pairs = 0
+    # a large sub-reference multiplies seed hits per read, so the batch
+    # shrinks to bound the host seeding temporaries
+    batch_reads = 1 << 16 if len(subref.codes) < (32 << 20) else 1 << 14
+    # the seed prefilter always runs: without it every read goes through
+    # host seeding. An empty index gives an empty bitmap, which keeps no
+    # read, as host seeding would find no seed.
+    bitmap = align.prefix_bitmap(index, device)
+    # the stage-A code cache feeds alignment directly (no FASTQ re-read).
+    # As in the JAX package, cached batches keep their 1<<16 rows and so
+    # bypass the 1<<14 shrink above for a large sub-reference: kept as it
+    # is, the outputs must stay equal
+    if cache is not None and any(
+            e1.n != e2.n for e1, e2 in zip(cache[fq1], cache[fq2])):
+        cache.clear()
+        cache = None
+
+    def raw_batches():
+        """(c1, l1, c1_np, l1_np, c2, l2, c2_np, l2_np, n); the first two
+        of each mate are tensors for the prefilter."""
+        if cache is not None:
+            for e1, e2 in zip(cache[fq1], cache[fq2]):
+                yield (e1.codes, e1.lengths, e1.codes_np, e1.lengths_np,
+                       e2.codes, e2.lengths, e2.codes_np, e2.lengths_np,
+                       e1.n)
+            return
+        width = None
+        for b1, b2 in fastq.paired_batches(fq1, fq2, batch_reads=batch_reads,
+                                           threads=cfg.threads):
+            if width is None:
+                width = max(
+                    64,
+                    -(-max(b1.codes.shape[1], b2.codes.shape[1]) // 64) * 64)
+            out = []
+            for b in (b1, b2):
+                c = _pad_to(b.codes, width)
+                ln = np.minimum(b.lengths, width).astype(np.int32)
+                out.extend([torch.from_numpy(c), torch.from_numpy(ln), c, ln])
+            yield (*out, b1.n)
+
+    row_base = 0
+    width = None
+    for c1d, l1d, c1n, l1n, c2d, l2d, c2n, l2n, n in raw_batches():
+        width = c1n.shape[1]
+        ids = np.arange(row_base, row_base + n, dtype=np.int64)
+        batch_t = {}
+        for mate, cd, ld, cn, ln, codes_all in (
+            (0, c1d, l1d, c1n, l1n, codes1), (1, c2d, l2d, c2n, l2n, codes2),
+        ):
+            pfm = align.seed_prefilter_device(
+                cd.to(device), ld.to(device), bitmap).cpu().numpy()
+            t = align.align_batch(
+                subref, index, cn, ln, ids, mate, cfg.align, device, pfm,
+                threads=cfg.threads, mesh=mesh)
+            batch_t[mate] = t
+            # retain code rows ONLY for split candidates (contig2 >= 0)
+            keep = np.flatnonzero(t.contig2 >= 0)
+            codes_all.append((keep + row_base, cn[keep]))
+        # drop pairs with no mapped end (tables stay positionally paired)
+        keep_pair = (batch_t[0].contig > 0) | (batch_t[1].contig > 0)
+        tables1.append(_take_rows(batch_t[0], keep_pair))
+        tables2.append(_take_rows(batch_t[1], keep_pair))
+        row_base += n
+        n_pairs += n
+    a1 = align.AlnTable.concat(tables1)
+    a2 = align.AlnTable.concat(tables2)
+    if cache is not None:  # free the code cache before accbkp
+        cache.clear()
+    return (a1, a2, CompactRows.concat(codes1, width or 64),
+            CompactRows.concat(codes2, width or 64), n_pairs)
+
+
 def detect_breakpoint(
     ref_path: str,
     fq1: str,
@@ -152,84 +238,12 @@ def detect_breakpoint(
 
     # --- align all read pairs ---
     t1 = time.time()
-    _align_t = metrics.stage("align")
-    _align_t.__enter__()
-    tables1, tables2 = [], []
-    codes1, codes2 = [], []
-    n_pairs = 0
-    # a large sub-reference multiplies seed hits per read, so the batch
-    # shrinks to bound the host seeding temporaries
-    batch_reads = 1 << 16 if len(subref.codes) < (32 << 20) else 1 << 14
-    # the seed prefilter always runs: without it every read goes through
-    # host seeding. An empty index gives an empty bitmap, which keeps no
-    # read, as host seeding would find no seed.
-    bitmap = align.prefix_bitmap(index, device)
-    # the stage-A code cache feeds alignment directly (no FASTQ re-read).
-    # As in the JAX package, cached batches keep their 1<<16 rows and so
-    # bypass the 1<<14 shrink above for a large sub-reference: kept as it
-    # is, the outputs must stay equal
-    if cache is not None and any(
-            e1.n != e2.n for e1, e2 in zip(cache[fq1], cache[fq2])):
-        cache = None
-
-    def raw_batches():
-        """(c1, l1, c1_np, l1_np, c2, l2, c2_np, l2_np, n); the first two
-        of each mate are tensors for the prefilter."""
-        if cache is not None:
-            for e1, e2 in zip(cache[fq1], cache[fq2]):
-                yield (e1.codes, e1.lengths, e1.codes_np, e1.lengths_np,
-                       e2.codes, e2.lengths, e2.codes_np, e2.lengths_np,
-                       e1.n)
-            return
-        width = None
-        for b1, b2 in fastq.paired_batches(fq1, fq2, batch_reads=batch_reads,
-                                           threads=cfg.threads):
-            if width is None:
-                width = max(
-                    64,
-                    -(-max(b1.codes.shape[1], b2.codes.shape[1]) // 64) * 64)
-            out = []
-            for b in (b1, b2):
-                c = _pad_to(b.codes, width)
-                ln = np.minimum(b.lengths, width).astype(np.int32)
-                out.extend([torch.from_numpy(c), torch.from_numpy(ln), c, ln])
-            yield (*out, b1.n)
-
-    row_base = 0
-    width = None
-    for c1d, l1d, c1n, l1n, c2d, l2d, c2n, l2n, n in raw_batches():
-        width = c1n.shape[1]
-        ids = np.arange(row_base, row_base + n, dtype=np.int64)
-        batch_t = {}
-        for mate, cd, ld, cn, ln, codes_all in (
-            (0, c1d, l1d, c1n, l1n, codes1), (1, c2d, l2d, c2n, l2n, codes2),
-        ):
-            pfm = align.seed_prefilter_device(
-                cd.to(device), ld.to(device), bitmap).cpu().numpy()
-            t = align.align_batch(
-                subref, index, cn, ln, ids, mate, cfg.align, device, pfm,
-                threads=cfg.threads, mesh=mesh)
-            batch_t[mate] = t
-            # retain code rows ONLY for split candidates (contig2 >= 0)
-            keep = np.flatnonzero(t.contig2 >= 0)
-            codes_all.append((keep + row_base, cn[keep]))
-        # drop pairs with no mapped end (tables stay positionally paired)
-        keep_pair = (batch_t[0].contig > 0) | (batch_t[1].contig > 0)
-        tables1.append(_take_rows(batch_t[0], keep_pair))
-        tables2.append(_take_rows(batch_t[1], keep_pair))
-        row_base += n
-        n_pairs += n
-    a1 = align.AlnTable.concat(tables1)
-    a2 = align.AlnTable.concat(tables2)
-    if cache is not None:  # free the code cache before accbkp
-        cache.clear()
-    del bitmap
-    codes1 = CompactRows.concat(codes1, width or 64)
-    codes2 = CompactRows.concat(codes2, width or 64)
-    mapped = int(((a1.contig > 0) | (a2.contig > 0)).sum())
-    metrics.add("mapped_pairs", mapped)
-    metrics.add("n_pairs", n_pairs)
-    _align_t.__exit__(None, None, None)
+    with metrics.stage("align"):
+        a1, a2, codes1, codes2, n_pairs = align_reads(
+            fq1, fq2, subref, index, cache, cfg, device, mesh)
+        mapped = int(((a1.contig > 0) | (a2.contig > 0)).sum())
+        metrics.add("mapped_pairs", mapped)
+        metrics.add("n_pairs", n_pairs)
     log.info("aligned %d pairs (%d with a mapped end) in %.1fs",
              n_pairs, mapped, time.time() - t1)
 

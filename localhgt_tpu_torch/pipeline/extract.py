@@ -124,7 +124,13 @@ def count_kmers(fq1, fq2, masks, cfg: Config, device):
     """Stage A: per-hash count tables from both FASTQs, plus the padded
     read-code cache for the vote and align passes. With cfg.count_ckpt set,
     finished tables persist in the JAX layout and a later run with the
-    same inputs resumes from them (the cache is then None)."""
+    same inputs resumes from them (the cache is then None).
+
+    Series, as the JAX package records them: `count_batch_dispatch_s`,
+    one sample a batch (upload, step, cache and clip, after the host
+    parse); on a CUDA device also `count_step_device_s`, the synced step
+    of every 16th batch, the basis of metrics.derived's
+    count_step_gbps_device."""
     ckpt = count_ckpt_path(fq1, fq2, cfg) if cfg.count_ckpt else None
     k = cfg.kmer.k
     if ckpt and os.path.isfile(ckpt):
@@ -137,6 +143,7 @@ def count_kmers(fq1, fq2, masks, cfg: Config, device):
         return tables, ratio, n_pairs, None
 
     tables = [count.make_table(k, device) for _ in range(cfg.kmer.coder_num)]
+    on_card = torch.device(device).type == "cuda"
     ratio = fastq.downsample_ratio(cfg.kmer.sample, fq1)
     n_pairs = 0
     width = None
@@ -153,13 +160,25 @@ def count_kmers(fq1, fq2, masks, cfg: Config, device):
             acc = fastq.accept_mask(b.start_ordinal, b.n, ratio,
                                     cfg.kmer.seed, cfg.kmer.strict_sampling)
             codes, lengths, acc = _pad_read_batch(b, acc, width)
+            t1 = time.perf_counter()
             codes_d = torch.from_numpy(codes).to(device)
             lengths_d = torch.from_numpy(lengths).to(device)
             acc_d = torch.from_numpy(acc).to(device)
             lmax = int(b.lengths.max()) if b.n else 0
+            # the device step's own time on every 16th batch (batch 0 holds
+            # the first launches): drain the queue, step, drain again. Only
+            # a card records it, so no CPU time is kept under its name
+            sample_step = on_card and nb % 16 == 1
+            if sample_step:
+                torch.cuda.synchronize(device)
+                t_sync = time.perf_counter()
             count.count_reads_step(
                 tables, codes_d, lengths_d, acc_d, masks, k,
                 cfg.kmer.least_depth, clip=False, kw=_kw(width, lmax, k))
+            if sample_step:
+                torch.cuda.synchronize(device)
+                metrics.record("count_step_device_s",
+                               time.perf_counter() - t_sync)
             if cache is not None:
                 cache_bytes += codes.nbytes + lengths.nbytes + acc.nbytes
                 if cache_bytes <= CODE_CACHE_DEVICE_LIMIT:
@@ -174,6 +193,8 @@ def count_kmers(fq1, fq2, masks, cfg: Config, device):
             if path == fq1:
                 n_pairs += b.n
             nb += 1
+            metrics.record("count_batch_dispatch_s",
+                           time.perf_counter() - t1)
     count.clip_tables(tables, cfg.kmer.least_depth)
     metrics.add("count_batches", nb)
     log.info("count: %d batches (code cache: %s)", nb,

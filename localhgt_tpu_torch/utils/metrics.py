@@ -3,16 +3,20 @@ derived throughput numbers.
 
 The reference's only observability is `date +%s` deltas in pipeline.sh and
 `/usr/bin/time -v` parsing in the paper harness (SURVEY.md section 5). Here
-every pipeline stage records into a process-global registry that bench.py
-and the grid runner surface next to accuracy. Copy of
-localhgt_tpu/utils/metrics.py without what asks JAX for a profiler trace or
-for device memory: device memory is in localhgt_tpu_torch/utils/device.py.
+every pipeline stage records into a process-global registry that the bench
+(localhgt_tpu_torch/bench.py) and the grid runner surface next to accuracy.
+Copy of localhgt_tpu/utils/metrics.py without what asks JAX for a profiler
+trace or for device memory: each stage is a `torch.profiler` span instead
+(read when a profiler is active), and device memory is in
+localhgt_tpu_torch/utils/device.py.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+
+import torch
 
 from localhgt_tpu_torch.utils import hostmem
 
@@ -80,9 +84,11 @@ def stage_rss() -> dict[str, float]:
 
 @contextlib.contextmanager
 def stage(name: str):
-    """Time a pipeline stage and sample the host RSS at its end."""
+    """Time a pipeline stage and sample the host RSS at its end; under an
+    active torch.profiler the stage is also a span of its trace."""
     t0 = time.perf_counter()
-    yield
+    with torch.profiler.record_function(name):
+        yield
     add_time(name, time.perf_counter() - t0)
     hostmem.trim()  # return freed arena pages before sampling RSS
     _STAGE_RSS[name] = host_rss_gb()
@@ -109,18 +115,23 @@ def derived(n_pairs: int, read_len: int, coder_num: int) -> dict:
       H2D + DP + D2H, nothing else).
     - sw_gcups_stage: the old stage-wall proxy, renamed so nobody triages
       kernel perf from it.
-    - count_scatter_gbps_stage: the old stage-wall proxy, renamed
-      (count-stage bytes, ~9 per k-mer per coder: sorted-stream reads +
-      table writes, over the `count` stage wall).
-
-    The JAX package's `count_step_gbps_device` key is left out: the port
-    records no `count_step_device_s` series (it re-runs no batch at the
-    end of stage A)."""
+    - count_step_gbps_device: count-stage bytes (~9 per k-mer per coder:
+      sorted-stream reads + table writes) a batch over the mean synced
+      device step (`count_step_device_s`, sampled on every 16th batch by
+      pipeline.extract.count_kmers on a CUDA device; absent on the CPU).
+    - count_scatter_gbps_stage: the old stage-wall proxy, renamed (the
+      same bytes over the `count` stage wall)."""
     out = {}
     w = stage_walls()
     kmers = n_pairs * 2 * max(read_len - 20, 1) * coder_num
     if w.get("count"):
         out["count_scatter_gbps_stage"] = round(kmers * 9 / w["count"] / 1e9, 2)
+    step = _SERIES.get("count_step_device_s")
+    nb = _COUNTERS.get("count_batches")
+    if step and nb:
+        bytes_per_batch = kmers * 9 / nb
+        out["count_step_gbps_device"] = round(
+            bytes_per_batch / (sum(step) / len(step)) / 1e9, 2)
     if w.get("align") and _COUNTERS.get("sw_cells"):
         out["sw_gcups_stage"] = round(
             _COUNTERS["sw_cells"] / w["align"] / 1e9, 2)

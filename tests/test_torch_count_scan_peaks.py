@@ -278,3 +278,16 @@ def test_count_checkpoint_is_shared_with_jax(tmp_path):
     assert pcache is None  # resumed from the JAX package's checkpoint
     for j, p in zip(jt, pt):
         np.testing.assert_array_equal(np.asarray(j), p.numpy())
+
+
+def test_count_kmers_records_the_dispatch_series_and_no_device_step(
+        tmp_path, monkeypatch):
+    """One `count_batch_dispatch_s` sample a batch; on the CPU no
+    `count_step_device_s`, the series a device metric is derived from."""
+    from test_torch_cuda import count_series
+
+    _, nb, series = count_series(tmp_path, monkeypatch, "cpu")
+    assert nb > 17  # batches 1 and 17 would be sampled on a card
+    assert set(series) == {"count_batch_dispatch_s"}
+    assert len(series["count_batch_dispatch_s"]) == nb
+    assert all(v >= 0 for v in series["count_batch_dispatch_s"])

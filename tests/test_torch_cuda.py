@@ -356,3 +356,45 @@ def test_bkp_over_a_mesh_on_the_card(dev, tmp_path):
                 open(f"{out}/mesh.{suffix}", "rb") as g:
             want = f.read()
             assert want.count(b"\n") > 1 and g.read() == want, suffix
+
+
+def test_count_kmers_samples_the_device_step_on_the_card(dev, tmp_path,
+                                                         monkeypatch):
+    """On the card count_kmers times the synced step of every 16th batch
+    (batches 1, 17, ...) beside one dispatch sample a batch, and its
+    tables equal the CPU run's."""
+    want, nb, cpu_series = count_series(tmp_path / "cpu", monkeypatch, "cpu")
+    got, nb_card, series = count_series(tmp_path / "card", monkeypatch, dev)
+    assert nb_card == nb > 17
+    assert len(series["count_batch_dispatch_s"]) == nb
+    assert len(series["count_step_device_s"]) == len(range(1, nb, 16))
+    assert "count_step_device_s" not in cpu_series
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+def count_series(tmp_path, monkeypatch, device):
+    """count_kmers at 64 reads a batch on a small fixture; returns (its
+    tables, the number of batches, the registry's series). Also run on
+    the CPU by tests/test_torch_count_scan_peaks.py."""
+    from localhgt_tpu_torch.config import Config, KmerConfig
+    from localhgt_tpu_torch.ops import encode
+    from localhgt_tpu_torch.pipeline import extract
+    from localhgt_tpu_torch.sim.simulate import SimParams, simulate_sample
+    from localhgt_tpu_torch.utils import metrics
+
+    pa = SimParams(n_genomes=2, genome_len=20_000, hgt_num=1, depth=5,
+                   seed=3)
+    _, fq1, fq2, _ = simulate_sample(str(tmp_path), "c", pa)
+    with open(fq1) as f:
+        n_reads = sum(1 for _ in f) // 4
+    monkeypatch.setattr(extract, "COUNT_BATCH_READS", 64)
+    masks, _ = encode.hasher_for(14, 3, seed=1)
+    metrics.reset()
+    tables, _, _, _ = extract.count_kmers(
+        fq1, fq2, masks, Config().replace(kmer=KmerConfig(k=14)), device)
+    nb = 2 * -(-n_reads // 64)
+    assert metrics.counters()["count_batches"] == nb
+    series = {k: list(v) for k, v in metrics._SERIES.items()}
+    metrics.reset()
+    return tables, nb, series

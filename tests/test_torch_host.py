@@ -395,8 +395,8 @@ def _check_validate_and_metrics(sample, tmp_path):
 
 def _check_grid_and_derived():
     """The sweep's grids are the original's, and `metrics.derived` gives
-    the original's numbers from the same registry contents (without
-    `count_step_gbps_device`: the port records no device step series)."""
+    the original's numbers from the same registry contents, the device
+    count step's `count_step_gbps_device` included."""
     import localhgt_tpu.sim.grid as jax_grid
     import localhgt_tpu_torch.sim.grid as grid
 
@@ -412,11 +412,9 @@ def _check_grid_and_derived():
             mod.record("sw_kernel_s", v)
             mod.record("count_step_device_s", v)
     want = jax_metrics.derived(1000, 150, 3)
-    assert "count_step_gbps_device" in want
-    del want["count_step_gbps_device"]
     assert metrics.derived(1000, 150, 3) == want
-    assert set(want) == {"count_scatter_gbps_stage", "sw_gcups_stage",
-                         "sw_gcups_kernel"}
+    assert set(want) == {"count_scatter_gbps_stage", "count_step_gbps_device",
+                         "sw_gcups_stage", "sw_gcups_kernel"}
     for mod in (metrics, jax_metrics):
         mod.reset()
     assert metrics.derived(1000, 150, 3) == jax_metrics.derived(1000, 150, 3)
