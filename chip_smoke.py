@@ -14,9 +14,11 @@ Phases, each fatal on failure:
      shapes (K2 at every window width accbkp makes from 150-bp reads: 96,
      128 and 160; K1 at the main path's median batch of 152, the record,
      and in a full tile of 8,192), K1/K2 also at validate_events' wide
-     reference (B=512, M=N=1,000), K3 also at the main path's candidate
-     density, at a ragged B, at a P that is no multiple of 4 and at the
-     sharded vote's B;
+     reference (B=512, M=N=1,000), K1/K2 also where the reference is
+     wider than their block and they sweep bands of 4,096 columns (B=64,
+     M=800, N = 4,097, 6,000 and 8,192, random and tie-heavy inputs),
+     K3 also at the main path's candidate density, at a ragged B, at a P
+     that is no multiple of 4 and at the sharded vote's B;
   4. simulate the `big` fixture (100 genomes x 1 Mbp, 50 HGTs, depth 5,
      seed 42) in a temporary directory;
   5. `bkp` at k=32 through the port's CLI entry on the card: every kernel
@@ -44,7 +46,13 @@ Phases, each fatal on failure:
  12. `python -m localhgt_tpu_torch.bench --scale species20` as a child
      process: it exits 0 and its record is on the card ("gpu", the card's
      name), holds the fixture's 101,335 pairs, recall >= 0.90, FDR <=
-     0.05, all seven stage walls and count_step_gbps_device.
+     0.05, all seven stage walls and count_step_gbps_device;
+ 13. `tools.comparator_run.run` on its default fixture (20 x 150 kbp,
+     depth 10, snp 0.01, seed 42) at k=32: the k-mer row and the
+     direct-mode row (`bkp --use_kmer 0`) equal the JAX package's
+     (reports/comparator.csv) in recall, fdr, f1 and n_called, the
+     reference engine's row reads skipped, K1 and K2 launch in the direct
+     row, whose K1 launches by (B, M, N) are logged.
 Phase 5b runs between phases 6 and 7, on the fixture as simulated:
 `tools.loss_table` on `big` at k=32, whose summary must equal the JAX
 package's (reports/loss_table_big.json) key for key, with K1-K3 launched.
@@ -76,6 +84,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # on the TPU (tools/loss_table.py, tools/mapq_calibration.py)
 LOSS_TABLE_REF = os.path.join(REPO, "reports", "loss_table_big.json")
 MAPQ_REF = os.path.join(REPO, "reports", "mapq_calibration.json")
+# the JAX package's comparator rows on the comparator's default fixture
+COMPARATOR_REF = os.path.join(REPO, "reports", "comparator.csv")
+COMPARATOR_ROWS = {"localhgt_tpu_torch": "localhgt_tpu",
+                   "localhgt_tpu_torch_direct": "localhgt_tpu_direct"}
+COMPARATOR_SCORES = ("recall", "fdr", "f1", "n_called")
+# references wider than the kernels' block (4,096 columns): bands
+BAND_WIDTHS = (4097, 6000, 8192)
 BENCH_SCALE, BENCH_PAIRS = "species20", 101_335
 BENCH_TIMEOUT_S = 300
 STAGES = ("count", "scan", "peakset", "vote", "align", "rawbkp", "accbkp")
@@ -265,6 +280,14 @@ def check_kernels(dev) -> list:
     # its record carries 0 launches.
     out += sw_both(512, 1000, 1000, False, "_wide", True, True)
     sw_both(512, 1000, 1000, True, "_wide_tie_heavy", True, True)
+    # K1 and K2 past their block's 4,096 columns: the block sweeps bands.
+    # No path of the port has such a window (0 launches on each).
+    t = time.perf_counter()
+    for N in BAND_WIDTHS:
+        out += sw_both(64, 800, N, False, f"_bands_n{N}", True, True)
+        out += sw_both(64, 800, N, True, f"_bands_n{N}_tie_heavy", True,
+                       True)
+    log(f"[kernels] band rows in {time.perf_counter() - t:.1f} s")
     return out
 
 
@@ -276,7 +299,16 @@ def counters():
             "sw_score": (cuda_sw.sw_score, "launches"),
             "vote_state": (cuda_vote.vote_state, "launches"),
             "sw_align_wide": (cuda_sw.sw_align, "wide_launches"),
-            "sw_score_wide": (cuda_sw.sw_score, "wide_launches")}
+            "sw_score_wide": (cuda_sw.sw_score, "wide_launches"),
+            "sw_align_bands": (cuda_sw.sw_align, "band_launches"),
+            "sw_score_bands": (cuda_sw.sw_score, "band_launches")}
+
+
+def counter_of(record: str) -> str:
+    """The counter of a kernel record: the band records of every width
+    and input share their kernel's band counter."""
+    head, bands, _ = record.partition("_bands")
+    return head + bands
 
 
 def drive(dev, fn):
@@ -682,6 +714,36 @@ def run_bench() -> None:
         raise SystemExit(f"bench record out of its gate: {bad}")
 
 
+def run_comparator(dev, work: str) -> None:
+    """Phase 13: the comparator's k-mer and direct-mode rows against the
+    JAX package's."""
+    from localhgt_tpu_torch.tools import comparator_run
+
+    with open(COMPARATOR_REF) as f:
+        want = {r["tool"]: r for r in csv.DictReader(f)}
+    out, launches, wall = drive(dev, lambda: comparator_run.run(
+        os.path.join(work, "comparator"), KMER, device=dev))
+    rows = out["rows"]
+    for name, jax_name in COMPARATOR_ROWS.items():
+        row = rows[name]
+        got = {c: str(row[c]) for c in COMPARATOR_SCORES}
+        log(f"[comparator] {name}: {json.dumps(got)}, wall {row['wall_s']} "
+            f"s, cpu {row['cpu_s']} s, max RSS {row['max_rss_gb']} GB; "
+            f"kernel launches: {json.dumps(row['launches'])}")
+        if got != {c: want[jax_name][c] for c in COMPARATOR_SCORES}:
+            raise SystemExit(f"comparator row {name} differs from the JAX "
+                             f"package's {jax_name}: {want[jax_name]}")
+    log(f"[comparator] {wall:.1f} s; reference engine: "
+        f"{json.dumps(rows['reference_extract_ref'])}; kernel launches: "
+        f"{json.dumps(launches)}")
+    if "skipped" not in rows["reference_extract_ref"]:
+        raise SystemExit("the reference engine's row ran: its source is "
+                         "not in the repository")
+    direct = rows["localhgt_tpu_torch_direct"]["launches"]
+    if min(direct["sw_align"], direct["sw_score"]) <= 0:
+        raise SystemExit(f"K1 or K2 never launched in direct mode: {direct}")
+
+
 def run_pipeline(dev, kernels: list) -> None:
     from localhgt_tpu_torch.sim.simulate import SimParams, simulate_sample
     from localhgt_tpu_torch import cli
@@ -716,8 +778,9 @@ def run_pipeline(dev, kernels: list) -> None:
         run_kmer_stats(dev, fq1)
         run_mapq(dev, work)
         run_bench()
+        run_comparator(dev, work)
         for rec in kernels:
-            rec["launches"] = launches[rec["name"]]
+            rec["launches"] = launches[counter_of(rec["name"])]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -750,7 +813,9 @@ def main() -> int:
             fut.result()
     log(f"[build] K1/K2 sw.cu + K3 vote.cu in {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
     kernels = check_kernels(dev)
+    log(f"[kernels] phase 3 in {time.perf_counter() - t:.1f} s")
     run_pipeline(dev, kernels)
     if "jax" in sys.modules:
         raise SystemExit("jax was imported")

@@ -125,6 +125,15 @@ def classify_events(events, contigs, device, tandem: dict | None = None,
     return out
 
 
+def mechanism_frequency(classified) -> dict:
+    """mechanism -> relative frequency (mechanism_taxonomy.py:35-50)."""
+    freq = {}
+    for c in classified:
+        freq[c["del_mechanism"]] = freq.get(c["del_mechanism"], 0) + 1
+    n = max(1, len(classified))
+    return {k: round(v / n, 2) for k, v in freq.items()}
+
+
 def read_interval_bed(path: str) -> dict:
     """contig -> [(start, end)] from a 3-column BED-like annotation file
     (the shape `get_tandem_repeat`/`get_TEI` build, mechanism.py:152-188)."""

@@ -1,8 +1,8 @@
 """Benchmark of the port: end-to-end `bkp` throughput on one CUDA card.
 
     python -m localhgt_tpu_torch.bench [--scale big|species20|scale1g]
-        [-k 32] [--regen] [--lock-timeout 120] [--force] [--profile]
-        [--device cuda] [--json PATH]
+        [-k 32] [--use_kmer 1|0] [--regen] [--lock-timeout 120] [--force]
+        [--profile] [--device cuda] [--json PATH]
 
 The counterpart of the JAX package's bench.py, at the same scales (the
 same SimParams, seed 42): `big` (default) is 100 genomes x 1 Mbp, 50
@@ -33,7 +33,11 @@ apps other than this process and its ancestors) or another
 --profile runs the timed pass under torch.profiler (CPU and CUDA
 activity); each pipeline stage is a span (utils/metrics.stage). The
 Chrome trace goes to run_<scale>/trace/ and `trace_dir` into the JSON.
-Imports nothing of JAX.
+
+--use_kmer 0 runs `bkp` in direct mode (no k-mer stage: every read is
+aligned against the whole reference) in run_<scale>_direct; its record
+adds `use_kmer` (0) and `k1_launch_shapes`, the timed pass's launches of
+kernel K1 as [B, M, N, launches] rows. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -179,11 +183,14 @@ def fixture(scale: str, fixture_dir: str, regen: bool = False) -> tuple:
 
 def run(ref: str, fq1: str, fq2: str, truth_path: str, scale: str,
         outdir: str, k: int, device, two_pass: bool,
-        trace_dir: str | None = None, sim_wall: float = 0.0) -> dict:
+        trace_dir: str | None = None, sim_wall: float = 0.0,
+        use_kmer: bool = True) -> dict:
     """`bkp` on one fixture, once or twice (the second pass timed), and
     the bench's record of it. With `trace_dir` the timed pass runs under
-    torch.profiler and its Chrome trace is written there."""
+    torch.profiler and its Chrome trace is written there; use_kmer=False
+    runs direct mode."""
     from localhgt_tpu_torch.config import Config, KmerConfig
+    from localhgt_tpu_torch.ops import cuda_sw
     from localhgt_tpu_torch.pipeline.bkp import detect_breakpoint
     from localhgt_tpu_torch.sim import evaluate
     from localhgt_tpu_torch.sim.simulate import read_truth
@@ -202,9 +209,10 @@ def run(ref: str, fq1: str, fq2: str, truth_path: str, scale: str,
         if on_card:  # the first synchronize also creates the context
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
+        cuda_sw.sw_align.shapes.clear()
         t0 = time.time()
         acc = detect_breakpoint(ref, fq1, fq2, sample, outdir, device,
-                                cfg=cfg)
+                                cfg=cfg, use_kmer=use_kmer)
         if on_card:
             torch.cuda.synchronize(device)
         return acc, time.time() - t0
@@ -261,6 +269,10 @@ def run(ref: str, fq1: str, fq2: str, truth_path: str, scale: str,
         rec["counters"] = {key: round(v, 1) for key, v in cnt.items()}
     if trace_dir:
         rec["trace_dir"] = trace_dir
+    if not use_kmer:
+        rec["use_kmer"] = 0
+        rec["k1_launch_shapes"] = [
+            [*shape, n] for shape, n in sorted(cuda_sw.sw_align.shapes.items())]
     mem = device_mod.memory_stats(device)
     if mem:  # GiB of the card's HBM3, under the JAX record's names
         rec["hbm_peak_gb"] = round(mem["device_peak_gib"], 3)
@@ -277,6 +289,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", default="big", choices=sorted(SCALES))
     ap.add_argument("-k", type=int, default=32,
                     help="k-mer length (default 32, the reference's)")
+    ap.add_argument("--use_kmer", type=int, default=1, choices=(0, 1),
+                    help="0: direct mode, no k-mer extraction stage")
     ap.add_argument("--regen", action="store_true",
                     help="simulate the fixture again")
     ap.add_argument("--lock-timeout", type=float, default=120.0,
@@ -291,7 +305,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     device = resolve(args.device)
 
-    out = os.path.join(FIXTURE_DIR, f"run_{args.scale}")
+    out = os.path.join(FIXTURE_DIR, f"run_{args.scale}"
+                       + ("" if args.use_kmer else "_direct"))
     lock_fd = _acquire_lock(FIXTURE_DIR, args.lock_timeout)
     try:
         others = other_card_processes(
@@ -307,7 +322,7 @@ def main(argv=None) -> int:
         rec = run(ref, fq1, fq2, truth, args.scale, out, args.k, device,
                   SCALES[args.scale][4],
                   os.path.join(out, "trace") if args.profile else None,
-                  sim_wall)
+                  sim_wall, use_kmer=bool(args.use_kmer))
     finally:
         os.close(lock_fd)
     line = json.dumps(rec)

@@ -92,6 +92,19 @@
 // where the ring is full. The bests are reduced over the block once, at
 // the end.
 //
+// Wider references (N > 4096): the same block sweeps bands of 4096 columns
+// one after another, all its warps on one band at a time. The last warp of
+// a band writes its outgoing edge of every row (the int4 or int2 the ring
+// carries) to a buffer in device memory, M rows an alignment, that the
+// caller allocates; the first warp of the next band reads it, 32 rows at
+// a time into shared memory, in place of column 0's boundary. One buffer
+// serves every band: the last warp writes row i only after the first warp
+// has read it (row i of the last warp follows row i of the first through
+// the ring). A block barrier between two bands makes the edge visible. A
+// lane keeps its best cell of a band with the strict row-major rule and
+// folds it into the best of the bands before lexicographically, so the
+// tie rules above hold across bands.
+//
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(); it never synchronises or allocates.
 //
@@ -127,7 +140,11 @@ constexpr int kNeg = -(1 << 28);
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNarrowMaxN = 16 * 32;  // the widest one-warp dispatch
 constexpr int kWideMaxWarps = 16;
-constexpr int kWideMaxN = 4096;
+constexpr int kWideMaxN = 4096;  // the widest block; wider N sweeps bands
+// 16 columns a lane in K1's wide mapping: fewer stripes, less lag between
+// them and a step's shuffles shared by more cells than 8 or 4 (tune_sw on
+// an H100)
+constexpr int kAlignWideNPL = 16;
 constexpr int kScoreWarps = 4;  // warps a block, N <= 512 (both kernels)
 // query rows staged at a time, and the steps between two progress counts
 // of a stripe of the wide mapping; a power of two
@@ -296,41 +313,41 @@ __device__ __forceinline__ void write_align(int32_t* ob, int bH, int bPos,
 // lane left one step earlier (last H and O, outgoing E and its origin).
 // kWide: one block per alignment, G = 32, warp w the stripe of 32*NPL
 // columns after warp w-1's; the edge between two stripes goes through a
-// ring in shared memory (see the header). kGuard: the best skips the
-// columns past N, and the substitution score is a compare and a select.
-template <int G, int NPL, bool kWide, bool kGuard>
+// ring in shared memory (see the header). kBands: the wide block sweeps
+// bands of kWideMaxN columns, joined through `edge` (M int4 an alignment;
+// see the header). kGuard: the best skips the columns past N, and the
+// substitution score is a compare and a select.
+template <int G, int NPL, bool kWide, bool kGuard, bool kBands = false>
 __global__ void __launch_bounds__(kWide ? kWideMaxN / NPL : 32 * kScoreWarps)
 sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
                 int32_t* __restrict__ out, long long B, int M, int N,
-                int match, int mismatch, int go, int ge) {
+                int match, int mismatch, int go, int ge, int4* edge) {
   static_assert(!kWide || G == 32, "a stripe is a whole warp");
+  static_assert(!kBands || kWide, "a band is a sweep of the wide block");
   static_assert(G <= kChunk, "the query ring holds the rows of two chunks, "
                              "and a group's lanes are spread over G");
   constexpr int kGroups = 32 / G;
   // wide: as many warps as stripes of 32 * NPL columns cover kWideMaxN
   constexpr int kWarps = kWide ? kWideMaxN / (32 * NPL) : kScoreWarps;
+  constexpr int kStripe = 32 * NPL;
+  constexpr int kBand = kWarps * kStripe;  // kBands: columns a band
   constexpr bool kTable = LHT_SW_TABLE && !kGuard;
   __shared__ uint16_t sQuery[kWarps][kGroups][2 * kChunk];
   __shared__ int sProgress[kWarps];  // wide: steps each warp has finished
   __shared__ int sBest[3][kWarps];   // wide: each warp's best H, index, origin
+  __shared__ int4 sIn[kBands ? kChunk : 1];  // kBands: a chunk's left edge
   extern __shared__ int4 sRing[];    // wide: [warps - 1][kEdgeRows]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
   const int lg = lane & (G - 1);
   long long b;
-  int j0;
   if (kWide) {
     b = blockIdx.x;
-    j0 = (warp * 32 + lane) * NPL;
-    if (lane == 0) sProgress[warp] = 0;
-    __syncthreads();
   } else {
     b = ((long long)blockIdx.x * kScoreWarps + warp) * kGroups;
     if (b >= B) return;  // uniform across the warp
     b += lane / G;
-    j0 = lg * NPL;
   }
   // a group past B repeats the last alignment and writes nothing, so that
   // every shuffle below has the whole warp
@@ -339,83 +356,124 @@ sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
   const uint8_t* qb = q + b * M;
   const uint8_t* rb = r + b * N;
   uint16_t* myq = sQuery[warp][lane / G];
-
-  int rc[NPL], H[NPL], O[NPL], F[NPL], FO[NPL];
-#pragma unroll
-  for (int c = 0; c < NPL; ++c) {
-    const int j = j0 + c;
-    rc[c] = column_entry<kTable>(j < N ? (int)rb[j] : 4, match, mismatch);
-    H[c] = 0;
-    O[c] = 0;
-    F[c] = kNeg + go;
-    FO[c] = 0;
-  }
   const int np1 = N + 1;
-  const int nvalid = N - j0;
   const int goe = go + ge;
-  int bH = 0, bPos = 0, bO = 0;  // this lane's best cell
-  // what the lane to the right takes next step
-  int hlast = 0, olast = 0, eout = 0, eoout = 0;
-  // H and origin of the row above, left of the first column
-  int hprev = 0, oprev = 0;
+  int bH = 0, bPos = 0, bO = 0;  // this lane's best cell (of the band)
+  int aH = 0, aPos = 0, aO = 0;  // kBands: its best of the bands before
+  const int nbands = kBands ? (N + kBand - 1) / kBand : 1;
 
-  // One step. kAll: every lane of the warp has a row (G-1 <= t < M), so
-  // the lane's own test and the branch around the row are left out.
-  auto step = [&](int t, auto all) {
-    constexpr bool kAll = decltype(all)::value;
-    const int i = t - lg;
-    const bool active = kAll || (unsigned)i < (unsigned)M;
-    int hleft = __shfl_up_sync(kFull, hlast, 1, G);
-    int oleft = __shfl_up_sync(kFull, olast, 1, G);
-    int e = __shfl_up_sync(kFull, eout, 1, G);
-    int eo = __shfl_up_sync(kFull, eoout, 1, G);
-    if (lg == 0) {
-      hleft = 0;
-      oleft = 0;
-      e = kNeg + go;  // column 0 has no column to its left
-      eo = 0;
-      if (kWide) {
-        if (warp > 0 && active) {
-          const int4 v = sRing[(warp - 1) * kEdgeRows + (i & (kEdgeRows - 1))];
-          hleft = v.x;
-          oleft = v.y;
-          e = v.z;
-          eo = v.w;
+  for (int band = 0; band < nbands; ++band) {
+    const int col0 = band * kBand;
+    // the warps that hold columns of this band: all but in a last band
+    // that is narrower than kBand
+    const int nwarps = kBands ? min(kWarps, (N - col0 + kStripe - 1) / kStripe)
+                              : blockDim.x >> 5;
+    if (kWide) {
+      if (kBands && band > 0) __syncthreads();  // the band before is done
+      if (lane == 0) sProgress[warp] = 0;
+      __syncthreads();
+    }
+    if (kBands && warp >= nwarps) continue;
+    const int j0 = kWide ? col0 + (warp * 32 + lane) * NPL : lg * NPL;
+    // kBands: the first warp takes its left edge from `edge`, and the last
+    // warp of a band that has another after it writes its right edge there
+    const bool edge_in = kBands && band > 0 && warp == 0;
+    const bool edge_out = kBands && band + 1 < nbands && warp == nwarps - 1;
+    int4* eb = kBands ? edge + b * M : nullptr;
+
+    int rc[NPL], H[NPL], O[NPL], F[NPL], FO[NPL];
+#pragma unroll
+    for (int c = 0; c < NPL; ++c) {
+      const int j = j0 + c;
+      rc[c] = column_entry<kTable>(j < N ? (int)rb[j] : 4, match, mismatch);
+      H[c] = 0;
+      O[c] = 0;
+      F[c] = kNeg + go;
+      FO[c] = 0;
+    }
+    const int nvalid = N - j0;
+    // what the lane to the right takes next step
+    int hlast = 0, olast = 0, eout = 0, eoout = 0;
+    // H and origin of the row above, left of the first column
+    int hprev = 0, oprev = 0;
+
+    // One step. kAll: every lane of the warp has a row (G-1 <= t < M), so
+    // the lane's own test and the branch around the row are left out.
+    auto step = [&](int t, auto all) {
+      constexpr bool kAll = decltype(all)::value;
+      const int i = t - lg;
+      const bool active = kAll || (unsigned)i < (unsigned)M;
+      int hleft = __shfl_up_sync(kFull, hlast, 1, G);
+      int oleft = __shfl_up_sync(kFull, olast, 1, G);
+      int e = __shfl_up_sync(kFull, eout, 1, G);
+      int eo = __shfl_up_sync(kFull, eoout, 1, G);
+      if (lg == 0) {
+        hleft = 0;
+        oleft = 0;
+        e = kNeg + go;  // column 0 has no column to its left
+        eo = 0;
+        if (kWide) {
+          if (warp > 0 && active) {
+            const int4 v =
+                sRing[(warp - 1) * kEdgeRows + (i & (kEdgeRows - 1))];
+            hleft = v.x;
+            oleft = v.y;
+            e = v.z;
+            eo = v.w;
+          } else if (edge_in && active) {
+            const int4 v = sIn[i & (kChunk - 1)];
+            hleft = v.x;
+            oleft = v.y;
+            e = v.z;
+            eo = v.w;
+          }
         }
       }
-    }
-    if (active) {
-      const int qi = myq[i & (2 * kChunk - 1)];
-      align_row<NPL, kTable, kGuard>(rc, H, O, F, FO, qi, hprev, oprev, e,
-                                     eo, i * np1 + j0, match, mismatch, goe,
-                                     ge, nvalid, bH, bPos, bO);
-      hlast = H[NPL - 1];
-      olast = O[NPL - 1];
-      eout = e;
-      eoout = eo;
-      if (kWide) {
-        if (lane == 31 && warp + 1 < nwarps)
-          sRing[warp * kEdgeRows + (i & (kEdgeRows - 1))] =
-              make_int4(hlast, olast, eout, eoout);
+      if (active) {
+        const int qi = myq[i & (2 * kChunk - 1)];
+        align_row<NPL, kTable, kGuard>(rc, H, O, F, FO, qi, hprev, oprev, e,
+                                       eo, i * np1 + j0, match, mismatch,
+                                       goe, ge, nvalid, bH, bPos, bO);
+        hlast = H[NPL - 1];
+        olast = O[NPL - 1];
+        eout = e;
+        eoout = eo;
+        if (kWide && lane == 31) {
+          const int4 v = make_int4(hlast, olast, eout, eoout);
+          if (warp + 1 < nwarps)
+            sRing[warp * kEdgeRows + (i & (kEdgeRows - 1))] = v;
+          else if (edge_out)
+            __stcg(eb + i, v);
+        }
       }
-    }
-    // the left lane's row i is this lane's row above next step
-    hprev = hleft;
-    oprev = oleft;
-  };
+      // the left lane's row i is this lane's row above next step
+      hprev = hleft;
+      oprev = oleft;
+    };
 
-  const int T = M + G - 1;
-  for (int t0 = 0; t0 < T; t0 += kChunk) {
-    const int tend = min(t0 + kChunk, T);
-    __syncwarp();
-    stage_query<G, kTable>(myq, qb, M, t0, lg);
-    if (kWide) wait_for_neighbours(sProgress, warp, nwarps, tend, T);
-    __syncwarp();
-    int t = t0;
-    for (; t < min(tend, G - 1); ++t) step(t, std::false_type());
-    for (; t < min(tend, M); ++t) step(t, std::true_type());
-    for (; t < tend; ++t) step(t, std::false_type());
-    if (kWide) publish_progress(sProgress, warp, lane, tend);
+    const int T = M + G - 1;
+    for (int t0 = 0; t0 < T; t0 += kChunk) {
+      const int tend = min(t0 + kChunk, T);
+      __syncwarp();
+      stage_query<G, kTable>(myq, qb, M, t0, lg);
+      if (edge_in && t0 + lane < M) sIn[lane] = __ldcg(eb + t0 + lane);
+      if (kWide) wait_for_neighbours(sProgress, warp, nwarps, tend, T);
+      __syncwarp();
+      int t = t0;
+      for (; t < min(tend, G - 1); ++t) step(t, std::false_type());
+      for (; t < min(tend, M); ++t) step(t, std::true_type());
+      for (; t < tend; ++t) step(t, std::false_type());
+      if (kWide) publish_progress(sProgress, warp, lane, tend);
+    }
+    if (kBands) {
+      take_better(aH, aPos, aO, bH, bPos, bO);
+      bH = bPos = bO = 0;
+    }
+  }
+  if (kBands) {
+    bH = aH;
+    bPos = aPos;
+    bO = aO;
   }
 
 #pragma unroll
@@ -436,7 +494,7 @@ sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
   }
   __syncthreads();
   if (threadIdx.x != 0) return;
-  for (int w = 1; w < nwarps; ++w)
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
     take_better(bH, bPos, bO, sBest[0][w], sBest[1][w], sBest[2][w]);
   write_align(out + b * 5, bH, bPos, bO, np1);
 }
@@ -449,30 +507,31 @@ int launch_align(const uint8_t* q, const uint8_t* r, int32_t* out,
   const long long blocks = (B + kPerBlock - 1) / kPerBlock;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   sw_align_kernel<G, NPL, false, kGuard>
-      <<<(unsigned)blocks, 32 * kScoreWarps, 0, s>>>(q, r, out, B, M, N,
-                                                     match, mismatch, go, ge);
+      <<<(unsigned)blocks, 32 * kScoreWarps, 0, s>>>(
+          q, r, out, B, M, N, match, mismatch, go, ge, nullptr);
   return (int)cudaGetLastError();
 }
 
-template <bool kGuard>
+// K1's wide block: N/512 warps for N <= kWideMaxN; kBands: all 8 warps,
+// sweeping the bands of a wider N through `edge`.
+template <bool kGuard, bool kBands>
 int launch_align_wide(const uint8_t* q, const uint8_t* r, int32_t* out,
                       long long B, int M, int N, int match, int mismatch,
-                      int go, int ge, cudaStream_t s) {
-  // 16 columns a lane: fewer stripes, less lag between them and a step's
-  // shuffles shared by more cells than 8 or 4 (tune_sw on an H100)
-  constexpr int kNPL = 16;
-  constexpr int kStripe = 32 * kNPL;
-  const int warps = (N + kStripe - 1) / kStripe;
-  if (N > kWideMaxN || B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+                      int go, int ge, int4* edge, cudaStream_t s) {
+  constexpr int kStripe = 32 * kAlignWideNPL;
+  const int warps =
+      kBands ? kWideMaxN / kStripe : (N + kStripe - 1) / kStripe;
+  if ((!kBands && N > kWideMaxN) || B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   // at most 7 edges of 256 rows (28 KB): within the 48 KB of dynamic
   // shared memory a launch gets without cudaFuncSetAttribute
   static_assert((kWideMaxN / kStripe - 1) * kEdgeRows * sizeof(int4) <=
                     48 * 1024,
                 "K1 wide: the edge ring needs more than 48 KB");
   const size_t ring = (size_t)(warps - 1) * kEdgeRows * sizeof(int4);
-  sw_align_kernel<32, kNPL, true, kGuard>
+  sw_align_kernel<32, kAlignWideNPL, true, kGuard, kBands>
       <<<(unsigned)B, 32 * warps, ring, s>>>(q, r, out, B, M, N, match,
-                                             mismatch, go, ge);
+                                             mismatch, go, ge, edge);
   return (int)cudaGetLastError();
 }
 
@@ -538,41 +597,41 @@ __device__ __forceinline__ int row_best(const int (&H)[NPL], int best,
 // left behind one step earlier (its last H and the E that runs out of its
 // last column), and no scan. kWide: one block per alignment, G = 32, warp w
 // the stripe of 32*NPL columns after warp w-1's; the edge between two
-// stripes goes through a ring in shared memory (see the header).
+// stripes goes through a ring in shared memory (see the header). kBands:
+// the wide block sweeps bands of kWideMaxWarps stripes, joined through
+// `edge` (M int2 an alignment; see the header).
 // kGuard: the maximum skips the columns past N, and the substitution score
 // is a compare and a select whatever LHT_SW_TABLE says (see lht_sw_score).
-template <int G, int NPL, bool kWide, bool kGuard>
+template <int G, int NPL, bool kWide, bool kGuard, bool kBands = false>
 __global__ void __launch_bounds__(32 * (kWide ? kWideMaxWarps : kScoreWarps))
 sw_score_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
                 int32_t* __restrict__ out, long long B, int M, int N,
-                int match, int mismatch, int go, int ge) {
+                int match, int mismatch, int go, int ge, int2* edge) {
   static_assert(!kWide || G == 32, "a stripe is a whole warp");
+  static_assert(!kBands || kWide, "a band is a sweep of the wide block");
   static_assert(G <= kChunk, "the query ring holds the rows of two chunks, "
                              "and a group's lanes are spread over G");
   constexpr int kGroups = 32 / G;
   constexpr int kWarps = kWide ? kWideMaxWarps : kScoreWarps;
+  constexpr int kStripe = 32 * NPL;
+  constexpr int kBand = kWarps * kStripe;  // kBands: columns a band
   constexpr bool kTable = LHT_SW_TABLE && !kGuard;
   __shared__ uint16_t sQuery[kWarps][kGroups][2 * kChunk];
   __shared__ int sProgress[kWarps];  // wide: steps each warp has finished
   __shared__ int sBest[kWarps];
+  __shared__ int2 sIn[kBands ? kChunk : 1];  // kBands: a chunk's left edge
   extern __shared__ int2 sEdge[];  // wide: [warps - 1][kEdgeRows] (H, E)
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
   const int lg = lane & (G - 1);
   long long b;
-  int j0;
   if (kWide) {
     b = blockIdx.x;
-    j0 = (warp * 32 + lane) * NPL;
-    if (lane == 0) sProgress[warp] = 0;
-    __syncthreads();
   } else {
     b = ((long long)blockIdx.x * kScoreWarps + warp) * kGroups;
     if (b >= B) return;  // uniform across the warp
     b += lane / G;
-    j0 = lg * NPL;
   }
   // a group past B repeats the last alignment and writes nothing, so that
   // every shuffle below has the whole warp
@@ -581,67 +640,96 @@ sw_score_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
   const uint8_t* qb = q + b * M;
   const uint8_t* rb = r + b * N;
   uint16_t* myq = sQuery[warp][lane / G];
-
-  int rc[NPL], H[NPL], F[NPL];
-#pragma unroll
-  for (int c = 0; c < NPL; ++c) {
-    const int j = j0 + c;
-    rc[c] = column_entry<kTable>(j < N ? (int)rb[j] : 4, match, mismatch);
-    H[c] = 0;
-    F[c] = kNeg + go;
-  }
-  const int nvalid = N - j0;
   const int goe = go + ge;
-  int best = 0;
-  int hlast = 0, eout = 0;  // what the lane to the right takes next step
-  int hprev = 0;            // H of the row above, left of the first column
+  int best = 0;  // over every band: the maximum needs no order
+  const int nbands = kBands ? (N + kBand - 1) / kBand : 1;
 
-  // One step. kAll: every lane of the warp has a row (G-1 <= t < M), so
-  // the lane's own test and the branch around the row are left out.
-  auto step = [&](int t, auto all) {
-    constexpr bool kAll = decltype(all)::value;
-    const int i = t - lg;
-    const bool active = kAll || (unsigned)i < (unsigned)M;
-    int hleft = __shfl_up_sync(kFull, hlast, 1, G);
-    int e = __shfl_up_sync(kFull, eout, 1, G);
-    if (lg == 0) {
-      hleft = 0;
-      e = kNeg + go;  // column 0 has no column to its left
-      if (kWide) {
-        if (warp > 0 && active) {
-          const int2 v = sEdge[(warp - 1) * kEdgeRows + (i & (kEdgeRows - 1))];
-          hleft = v.x;
-          e = v.y;
+  for (int band = 0; band < nbands; ++band) {
+    const int col0 = band * kBand;
+    // the warps that hold columns of this band: all but in a last band
+    // that is narrower than kBand
+    const int nwarps = kBands ? min(kWarps, (N - col0 + kStripe - 1) / kStripe)
+                              : blockDim.x >> 5;
+    if (kWide) {
+      if (kBands && band > 0) __syncthreads();  // the band before is done
+      if (lane == 0) sProgress[warp] = 0;
+      __syncthreads();
+    }
+    if (kBands && warp >= nwarps) continue;
+    const int j0 = kWide ? col0 + (warp * 32 + lane) * NPL : lg * NPL;
+    // kBands: the first warp takes its left edge from `edge`, and the last
+    // warp of a band that has another after it writes its right edge there
+    const bool edge_in = kBands && band > 0 && warp == 0;
+    const bool edge_out = kBands && band + 1 < nbands && warp == nwarps - 1;
+    int2* eb = kBands ? edge + b * M : nullptr;
+
+    int rc[NPL], H[NPL], F[NPL];
+#pragma unroll
+    for (int c = 0; c < NPL; ++c) {
+      const int j = j0 + c;
+      rc[c] = column_entry<kTable>(j < N ? (int)rb[j] : 4, match, mismatch);
+      H[c] = 0;
+      F[c] = kNeg + go;
+    }
+    const int nvalid = N - j0;
+    int hlast = 0, eout = 0;  // what the lane to the right takes next step
+    int hprev = 0;            // H of the row above, left of the first column
+
+    // One step. kAll: every lane of the warp has a row (G-1 <= t < M), so
+    // the lane's own test and the branch around the row are left out.
+    auto step = [&](int t, auto all) {
+      constexpr bool kAll = decltype(all)::value;
+      const int i = t - lg;
+      const bool active = kAll || (unsigned)i < (unsigned)M;
+      int hleft = __shfl_up_sync(kFull, hlast, 1, G);
+      int e = __shfl_up_sync(kFull, eout, 1, G);
+      if (lg == 0) {
+        hleft = 0;
+        e = kNeg + go;  // column 0 has no column to its left
+        if (kWide) {
+          if (warp > 0 && active) {
+            const int2 v =
+                sEdge[(warp - 1) * kEdgeRows + (i & (kEdgeRows - 1))];
+            hleft = v.x;
+            e = v.y;
+          } else if (edge_in && active) {
+            const int2 v = sIn[i & (kChunk - 1)];
+            hleft = v.x;
+            e = v.y;
+          }
         }
       }
-    }
-    if (active) {
-      const int qi = myq[i & (2 * kChunk - 1)];
-      eout = score_row<NPL, kTable>(rc, H, F, qi, hprev, e, match, mismatch,
-                                    goe, ge);
-      best = row_best<NPL, kGuard>(H, best, nvalid);
-      hlast = H[NPL - 1];
-      if (kWide) {
-        if (lane == 31 && warp + 1 < nwarps)
-          sEdge[warp * kEdgeRows + (i & (kEdgeRows - 1))] =
-              make_int2(hlast, eout);
+      if (active) {
+        const int qi = myq[i & (2 * kChunk - 1)];
+        eout = score_row<NPL, kTable>(rc, H, F, qi, hprev, e, match,
+                                      mismatch, goe, ge);
+        best = row_best<NPL, kGuard>(H, best, nvalid);
+        hlast = H[NPL - 1];
+        if (kWide && lane == 31) {
+          const int2 v = make_int2(hlast, eout);
+          if (warp + 1 < nwarps)
+            sEdge[warp * kEdgeRows + (i & (kEdgeRows - 1))] = v;
+          else if (edge_out)
+            __stcg(eb + i, v);
+        }
       }
-    }
-    hprev = hleft;  // the left lane's row i is this lane's row above next
-  };
+      hprev = hleft;  // the left lane's row i is this lane's row above next
+    };
 
-  const int T = M + G - 1;
-  for (int t0 = 0; t0 < T; t0 += kChunk) {
-    const int tend = min(t0 + kChunk, T);
-    __syncwarp();
-    stage_query<G, kTable>(myq, qb, M, t0, lg);
-    if (kWide) wait_for_neighbours(sProgress, warp, nwarps, tend, T);
-    __syncwarp();
-    int t = t0;
-    for (; t < min(tend, G - 1); ++t) step(t, std::false_type());
-    for (; t < min(tend, M); ++t) step(t, std::true_type());
-    for (; t < tend; ++t) step(t, std::false_type());
-    if (kWide) publish_progress(sProgress, warp, lane, tend);
+    const int T = M + G - 1;
+    for (int t0 = 0; t0 < T; t0 += kChunk) {
+      const int tend = min(t0 + kChunk, T);
+      __syncwarp();
+      stage_query<G, kTable>(myq, qb, M, t0, lg);
+      if (edge_in && t0 + lane < M) sIn[lane] = __ldcg(eb + t0 + lane);
+      if (kWide) wait_for_neighbours(sProgress, warp, nwarps, tend, T);
+      __syncwarp();
+      int t = t0;
+      for (; t < min(tend, G - 1); ++t) step(t, std::false_type());
+      for (; t < min(tend, M); ++t) step(t, std::true_type());
+      for (; t < tend; ++t) step(t, std::false_type());
+      if (kWide) publish_progress(sProgress, warp, lane, tend);
+    }
   }
 
 #pragma unroll
@@ -654,7 +742,7 @@ sw_score_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
   if (lane == 0) sBest[warp] = best;
   __syncthreads();
   if (threadIdx.x != 0) return;
-  for (int w = 1; w < nwarps; ++w) best = max(best, sBest[w]);
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) best = max(best, sBest[w]);
   out[b] = best;
 }
 
@@ -750,23 +838,25 @@ int launch_score(const uint8_t* q, const uint8_t* r, int32_t* out,
 #else
   sw_score_kernel<G, NPL, false, kGuard>
       <<<(unsigned)blocks, 32 * kScoreWarps, 0, s>>>(
-          q, r, out, B, M, N, match, mismatch, go, ge);
+          q, r, out, B, M, N, match, mismatch, go, ge, nullptr);
 #endif
   return (int)cudaGetLastError();
 }
 
-template <bool kGuard>
+// K2's wide block: N/256 warps for N <= kWideMaxN; kBands: all 16 warps,
+// sweeping the bands of a wider N through `edge`.
+template <bool kGuard, bool kBands>
 int launch_score_wide(const uint8_t* q, const uint8_t* r, int32_t* out,
                       long long B, int M, int N, int match, int mismatch,
-                      int go, int ge, cudaStream_t s) {
+                      int go, int ge, int2* edge, cudaStream_t s) {
   constexpr int kStripe = 32 * LHT_SW_WIDE_NPL;
-  const int warps = (N + kStripe - 1) / kStripe;
+  const int warps = kBands ? kWideMaxWarps : (N + kStripe - 1) / kStripe;
   if (warps > kWideMaxWarps || B > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const size_t ring = (size_t)(warps - 1) * kEdgeRows * sizeof(int2);
-  sw_score_kernel<32, LHT_SW_WIDE_NPL, true, kGuard>
+  sw_score_kernel<32, LHT_SW_WIDE_NPL, true, kGuard, kBands>
       <<<(unsigned)B, 32 * warps, ring, s>>>(q, r, out, B, M, N, match,
-                                             mismatch, go, ge);
+                                             mismatch, go, ge, edge);
   return (int)cudaGetLastError();
 }
 
@@ -793,11 +883,13 @@ extern "C" int lht_sw_align(const uint8_t* q, const uint8_t* r, int32_t* out,
   cudaStream_t s = (cudaStream_t)stream;
   const bool plain = table_fits(match, mismatch, go, ge);
   if (N > kNarrowMaxN) {
-    if (N > kWideMaxN) return (int)cudaErrorInvalidValue;
-    return plain ? launch_align_wide<false>(q, r, out, B, M, N, match,
-                                             mismatch, go, ge, s)
-                 : launch_align_wide<true>(q, r, out, B, M, N, match,
-                                           mismatch, go, ge, s);
+    if (N > kWideMaxN) return (int)cudaErrorInvalidValue;  // bands
+    return plain ? launch_align_wide<false, false>(q, r, out, B, M, N, match,
+                                                   mismatch, go, ge, nullptr,
+                                                   s)
+                 : launch_align_wide<true, false>(q, r, out, B, M, N, match,
+                                                  mismatch, go, ge, nullptr,
+                                                  s);
   }
   if (!plain)
     return launch_align<32, 16, true>(q, r, out, B, M, N, match, mismatch,
@@ -818,11 +910,13 @@ extern "C" int lht_sw_score(const uint8_t* q, const uint8_t* r, int32_t* out,
   cudaStream_t s = (cudaStream_t)stream;
   const bool plain = table_fits(match, mismatch, go, ge);
   if (N > kNarrowMaxN) {
-    if (N > kWideMaxN) return (int)cudaErrorInvalidValue;
-    return plain ? launch_score_wide<false>(q, r, out, B, M, N, match,
-                                             mismatch, go, ge, s)
-                  : launch_score_wide<true>(q, r, out, B, M, N, match,
-                                            mismatch, go, ge, s);
+    if (N > kWideMaxN) return (int)cudaErrorInvalidValue;  // bands
+    return plain ? launch_score_wide<false, false>(q, r, out, B, M, N, match,
+                                                   mismatch, go, ge, nullptr,
+                                                   s)
+                 : launch_score_wide<true, false>(q, r, out, B, M, N, match,
+                                                  mismatch, go, ge, nullptr,
+                                                  s);
   }
   if (!plain)
     return launch_score<32, 16, true>(q, r, out, B, M, N, match, mismatch,
@@ -834,4 +928,38 @@ extern "C" int lht_sw_score(const uint8_t* q, const uint8_t* r, int32_t* out,
   LHT_SCORE_PAIRS(LHT_SCORE_CASE)
 #undef LHT_SCORE_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// N > kWideMaxN: the wide block sweeps bands of kWideMaxN columns. `edge`
+// is the caller's buffer for the edge between two bands: B x M int4 (K1:
+// H, its origin, E, its origin) or int2 (K2: H, E), device memory that the
+// kernel overwrites.
+extern "C" int lht_sw_align_bands(const uint8_t* q, const uint8_t* r,
+                                  int32_t* out, long long B, int M, int N,
+                                  int match, int mismatch, int go, int ge,
+                                  void* edge, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  if (N <= kWideMaxN || edge == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int4* e = (int4*)edge;
+  return table_fits(match, mismatch, go, ge)
+             ? launch_align_wide<false, true>(q, r, out, B, M, N, match,
+                                              mismatch, go, ge, e, s)
+             : launch_align_wide<true, true>(q, r, out, B, M, N, match,
+                                             mismatch, go, ge, e, s);
+}
+
+extern "C" int lht_sw_score_bands(const uint8_t* q, const uint8_t* r,
+                                  int32_t* out, long long B, int M, int N,
+                                  int match, int mismatch, int go, int ge,
+                                  void* edge, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  if (N <= kWideMaxN || edge == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int2* e = (int2*)edge;
+  return table_fits(match, mismatch, go, ge)
+             ? launch_score_wide<false, true>(q, r, out, B, M, N, match,
+                                              mismatch, go, ge, e, s)
+             : launch_score_wide<true, true>(q, r, out, B, M, N, match,
+                                             mismatch, go, ge, e, s);
 }

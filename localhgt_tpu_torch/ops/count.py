@@ -25,6 +25,7 @@ from localhgt_tpu_torch.ops import encode
 SENTINEL = 0xFFFFFFFF
 JAX_TABLE_BITS = 30        # the JAX package packs tables for k above this
 JAX_PACKED_FIELDS = 8      # 4-bit fields per int32 word in that layout
+JAX_PACKED_FIELD_MAX = 15  # the largest count a 4-bit field holds
 
 
 def make_table(k: int, device) -> torch.Tensor:
@@ -98,6 +99,20 @@ def clip_tables(tables, cap: int = 3) -> None:
         t.clamp_(max=cap)
 
 
+def check_least_depth(k: int, cap: int) -> None:
+    """The JAX package's rule, raised where its count stage starts
+    (localhgt_tpu/ops/count.py::clip_every_batches): for k > 30 its tables
+    are 4-bit fields, and a cap above 7 lets a clipped field plus one
+    batch pass 15. The port's int8 tables would hold such counts, but its
+    checkpoints are that layout, and its answer must be the JAX package's,
+    so it refuses the same configurations with the same message."""
+    if k > JAX_TABLE_BITS and cap > (JAX_PACKED_FIELD_MAX - 1) // 2:
+        raise ValueError(
+            f"least_depth={cap} > 7 overflows the 4-bit packed count "
+            f"fields used for k={k} > {JAX_TABLE_BITS}; use k <= "
+            f"{JAX_TABLE_BITS} or a smaller least_depth")
+
+
 def clip_every_batches(cap: int = 3, streams: int = 1) -> int:
     """Unclipped batches an int8 table absorbs: a batch adds at most `cap`
     per rank-capped stream (`streams`: one, or one per shard of the
@@ -131,11 +146,18 @@ def tables_from_jax(arrays, k: int, device) -> list:
 
 def tables_to_jax(tables, k: int) -> list:
     """Plain int8 tensors -> the JAX layout as numpy arrays (inverse of
-    tables_from_jax). Counts must already be clipped (<= 15)."""
+    tables_from_jax). For k > 30 a count above 15 does not fit its 4-bit
+    field and raises instead of spilling into the next hash's."""
     out = []
     for t in tables:
         a = t.cpu().numpy()
         if k > JAX_TABLE_BITS:
+            top = int(a.max(initial=0))
+            if top > JAX_PACKED_FIELD_MAX:
+                raise ValueError(
+                    f"k={k}: a count of {top} does not fit the 4-bit "
+                    f"fields of the packed layout (<= "
+                    f"{JAX_PACKED_FIELD_MAX})")
             words = np.zeros(len(a) // JAX_PACKED_FIELDS, np.uint32)
             for f in range(JAX_PACKED_FIELDS):
                 words |= (a[f::JAX_PACKED_FIELDS].astype(np.uint32)

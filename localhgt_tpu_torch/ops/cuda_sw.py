@@ -7,7 +7,8 @@ CUDA kernel of `csrc/sw.cu` for CUDA tensors and its plain torch version
 tensors) for CPU tensors, and raises on anything else.
 Each wrapper counts its kernel launches in `<wrapper>.launches`, those of
 the wide-reference variant (N > NARROW_MAX_N) also in
-`<wrapper>.wide_launches`, and its launches by (B, M, N) in
+`<wrapper>.wide_launches`, those that sweep bands (N > WIDE_MAX_N) also in
+`<wrapper>.band_launches`, and its launches by (B, M, N) in
 `<wrapper>.shapes`.
 
 Both kernels are bound by the integer instructions they execute, and both
@@ -19,7 +20,10 @@ at step t, the recurrence in the Gotoh form on Hopper's DPX
 instructions, the substitution score by one byte permute out of a table
 word a column; above NARROW_MAX_N columns one block
 per alignment, a warp a stripe, the stripes joined through a ring in
-shared memory without a block barrier. K1 also carries the origin of H, E
+shared memory without a block barrier; above WIDE_MAX_N columns that block
+sweeps bands of WIDE_MAX_N columns, one after another, the edge between
+two bands in a buffer of M rows an alignment that the wrapper allocates.
+K1 also carries the origin of H, E
 and F (the packed index of the cell that started the alignment): each
 maximum with its winner is one `__vibmax_s32` and a select, with the
 operands in the order that reproduces the Pallas tie rules, so its start
@@ -37,22 +41,29 @@ import torch
 from localhgt_tpu_torch import _build
 
 NEG = -(1 << 28)
-# the widest reference windows: csrc/sw.cu runs N <= NARROW_MAX_N on one
-# warp (K2: one group of lanes) per alignment and NARROW_MAX_N < N <= MAX_N
-# on one block of N/256 warps
+# csrc/sw.cu runs N <= NARROW_MAX_N on one warp (K2: one group of lanes)
+# per alignment, NARROW_MAX_N < N <= WIDE_MAX_N on one block of N/512 (K2:
+# N/256) warps, and a wider N on that block in bands of WIDE_MAX_N columns
 NARROW_MAX_N = 512
-MAX_N = 4096
+WIDE_MAX_N = 4096
 MAX_CELLS = 1 << 31  # the origin register packs i*(N+1)+j into int32
+# int32 words of the edge between two bands, a query row: K1 carries H, E
+# and their origins, K2 H and E
+EDGE_WORDS = {"lht_sw_align_bands": 4, "lht_sw_score_bands": 2}
 
 _P = ctypes.c_void_p
-# both entry points: q, r, out, B, M, N, match, mismatch, open, ext, stream
+# lht_sw_align and lht_sw_score: q, r, out, B, M, N, match, mismatch, open,
+# ext, stream; the _bands entry points take the edge buffer before stream
 SIGNATURE = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+BANDS_SIGNATURE = SIGNATURE[:-1] + [_P, _P]
 
 
 def _lib():
     return _build.load("sw", {"lht_sw_align": SIGNATURE,
-                              "lht_sw_score": SIGNATURE})
+                              "lht_sw_score": SIGNATURE,
+                              "lht_sw_align_bands": BANDS_SIGNATURE,
+                              "lht_sw_score_bands": BANDS_SIGNATURE})
 
 
 def _shift_down(x: torch.Tensor, s: int, fill: int) -> torch.Tensor:
@@ -86,9 +97,6 @@ def _check_inputs(q: torch.Tensor, r: torch.Tensor) -> None:
     if q.device != r.device:
         raise ValueError(f"sw: query on {q.device}, reference on {r.device}")
     M, N = q.shape[1], r.shape[1]
-    if N > MAX_N:
-        raise ValueError(f"sw: reference width {N} is above {MAX_N}, the "
-                         "widest window kernels K1 and K2 take")
     if M * (N + 1) >= MAX_CELLS:
         raise ValueError(f"sw: {M} query rows x {N + 1} reference columns "
                          "overflow the int32 origin register")
@@ -96,15 +104,21 @@ def _check_inputs(q: torch.Tensor, r: torch.Tensor) -> None:
 
 def launch(lib, fn: str, q, r, out, match, mismatch, gap_open, gap_ext):
     """Launch entry point `fn` of a loaded build of csrc/sw.cu (the
-    package's own, or a variant that `tune_sw` built)."""
+    package's own, or a variant that `tune_sw` built). A `_bands` entry
+    point gets its edge buffer, allocated here: M rows of EDGE_WORDS[fn]
+    int32 an alignment."""
     q = q.contiguous()
     r = r.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = [q.data_ptr(), r.data_ptr(), out.data_ptr(), q.shape[0],
+            q.shape[1], r.shape[1], match, mismatch, gap_open, gap_ext]
+    edge = None
+    if fn in EDGE_WORDS:
+        edge = torch.empty((q.shape[0], q.shape[1], EDGE_WORDS[fn]),
+                           dtype=torch.int32, device=q.device)
+        args.append(edge.data_ptr())
     with torch.cuda.device(q.device):  # a launch goes to the current device
-        err = getattr(lib, fn)(
-            q.data_ptr(), r.data_ptr(), out.data_ptr(), q.shape[0],
-            q.shape[1], r.shape[1], match, mismatch, gap_open, gap_ext,
-            stream)
+        err = getattr(lib, fn)(*args, stream)
     _build.check(err, fn)
 
 
@@ -212,11 +226,14 @@ def sw_align(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-4,
         return sw_align_plain(q, r, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"sw_align: unsupported device {q.device}")
+    N = r.shape[1]
     out = torch.empty((q.shape[0], 5), dtype=torch.int32, device=q.device)
-    launch(_lib(), "lht_sw_align", q, r, out, *kw.values())
+    launch(_lib(), "lht_sw_align_bands" if N > WIDE_MAX_N else "lht_sw_align",
+           q, r, out, *kw.values())
     sw_align.launches += 1
-    sw_align.wide_launches += int(r.shape[1] > NARROW_MAX_N)
-    sw_align.shapes[(q.shape[0], q.shape[1], r.shape[1])] += 1
+    sw_align.wide_launches += int(N > NARROW_MAX_N)
+    sw_align.band_launches += int(N > WIDE_MAX_N)
+    sw_align.shapes[(q.shape[0], q.shape[1], N)] += 1
     return out
 
 
@@ -230,15 +247,18 @@ def sw_score(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-2,
         return sw_score_plain(q, r, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"sw_score: unsupported device {q.device}")
+    N = r.shape[1]
     out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
-    launch(_lib(), "lht_sw_score", q, r, out, *kw.values())
+    launch(_lib(), "lht_sw_score_bands" if N > WIDE_MAX_N else "lht_sw_score",
+           q, r, out, *kw.values())
     sw_score.launches += 1
-    sw_score.wide_launches += int(r.shape[1] > NARROW_MAX_N)
-    sw_score.shapes[(q.shape[0], q.shape[1], r.shape[1])] += 1
+    sw_score.wide_launches += int(N > NARROW_MAX_N)
+    sw_score.band_launches += int(N > WIDE_MAX_N)
+    sw_score.shapes[(q.shape[0], q.shape[1], N)] += 1
     return out
 
 
-sw_align.launches = sw_align.wide_launches = 0
-sw_score.launches = sw_score.wide_launches = 0
+sw_align.launches = sw_align.wide_launches = sw_align.band_launches = 0
+sw_score.launches = sw_score.wide_launches = sw_score.band_launches = 0
 sw_align.shapes = collections.Counter()
 sw_score.shapes = collections.Counter()

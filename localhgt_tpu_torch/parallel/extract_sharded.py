@@ -124,6 +124,7 @@ def count_kmers_sharded(mesh: DeviceMesh, fq1, fq2, masks, cfg: Config,
     n_pairs)."""
     k = cfg.kmer.k
     cap = cfg.kmer.least_depth
+    count.check_least_depth(k, cap)  # a mesh gives the single device's answer
     tables = [make_sharded_table(mesh, k) for _ in range(cfg.kmer.coder_num)]
     ratio = fastq.downsample_ratio(cfg.kmer.sample, fq1)
     clip_every = count.clip_every_batches(cap, streams=mesh.n)

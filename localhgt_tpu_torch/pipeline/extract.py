@@ -142,6 +142,7 @@ def count_kmers(fq1, fq2, masks, cfg: Config, device):
         log.info("count: resumed stage A from %s", ckpt)
         return tables, ratio, n_pairs, None
 
+    count.check_least_depth(k, cfg.kmer.least_depth)
     tables = [count.make_table(k, device) for _ in range(cfg.kmer.coder_num)]
     on_card = torch.device(device).type == "cuda"
     ratio = fastq.downsample_ratio(cfg.kmer.sample, fq1)

@@ -98,6 +98,22 @@ def test_classify_events_matches_jax(toy_cohort):  # noqa: F811
                                                       homo))
 
 
+def test_mechanism_frequency_matches_jax(toy_cohort):  # noqa: F811
+    """The relative frequency of each deletion mechanism, on classified
+    events (with the annotations that give TEI and VNTR calls) and on no
+    event at all."""
+    contigs, _, _ = toy_cohort
+    events = [mechanism.EventRow(*e) for e in _events()]
+    classified = mechanism.classify_events(
+        events * 3, contigs, "cpu", tei={"gB_1": [(690, 710)]},
+        tandem={"gA_1": [(4990, 5010)]}, ins_lens=[0, 3, 12, 0] * 3)
+    got = mechanism.mechanism_frequency(classified)
+    assert len(got) > 1
+    assert got == jax_mechanism.mechanism_frequency(classified)
+    assert mechanism.mechanism_frequency([]) == \
+        jax_mechanism.mechanism_frequency([]) == {}
+
+
 def test_event_and_bed_readers_match_jax(tmp_path):
     ev = tmp_path / "events.csv"
     ev.write_text("sample,receptor,insert_locus,donor,delete_start,"

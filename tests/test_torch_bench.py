@@ -108,6 +108,35 @@ def test_bench_record_on_the_cpu(tmp_path, profiled):
         assert set(rec["stage_walls"]) <= names  # a span per stage
 
 
+def test_bench_record_in_direct_mode_on_the_cpu(tmp_path):
+    """--use_kmer 0: no k-mer stage runs, the record says so and lists K1's
+    launch shapes (none on the CPU: the plain version runs), and the
+    calls score as the JAX package's direct mode on the same fixture."""
+    from localhgt_tpu.config import Config as JaxConfig
+    from localhgt_tpu.config import KmerConfig as JaxKmerConfig
+    from localhgt_tpu.pipeline.bkp import detect_breakpoint
+
+    ref, fq1, fq2, truth = simulate_sample(str(tmp_path), "tiny", SimParams(
+        n_genomes=3, genome_len=15_000, hgt_num=2, depth=5, snp_rate=0.01,
+        seed=5))
+    out = str(tmp_path / "run_tiny_direct")
+    os.makedirs(out)
+    rec = bench.run(ref, fq1, fq2, truth, "tiny", out, 18, "cpu",
+                    two_pass=False, use_kmer=False)
+    assert rec["use_kmer"] == 0 and rec["k1_launch_shapes"] == []
+    assert set(rec["stage_walls"]) == {"align", "rawbkp", "accbkp"}
+    acc = detect_breakpoint(ref, fq1, fq2, "jax", str(tmp_path), cfg=(
+        JaxConfig().replace(kmer=JaxKmerConfig(k=18))), use_kmer=False)
+    rows, _, _ = jax_formats.read_acc_csv(acc)
+    called = [(r["from_ref"], int(r["from_pos"]), r["to_ref"],
+               int(r["to_pos"])) for r in rows]
+    score = jax_evaluate.score_bkps(
+        jax_evaluate.truth_to_bkps(jax_read_truth(truth)), called)
+    assert score.recall > 0
+    assert (rec["recall"], rec["fdr"], rec["f1"]) == (
+        score.recall, score.fdr, score.f1)
+
+
 def test_second_lock_holder_fails_with_the_error_json(tmp_path, monkeypatch,
                                                       capsys):
     monkeypatch.setattr(bench, "FIXTURE_DIR", str(tmp_path))

@@ -79,6 +79,10 @@ SCORE_SHAPES = {
     "n513": (33, 150, 513), "n768": (9, 300, 768), "n769": (9, 300, 769),
     "n1000": (48, 1000, 1000), "n1025": (5, 200, 1025),
     "n4096": (8, 256, 4096),
+    # wider than the block: bands of 4,096 columns, the last one column
+    # wide, or with more query rows than the ring holds
+    "n4097": (5, 200, 4097), "n8192": (3, 300, 8192),
+    "n8193": (3, 100, 8193), "long_m_bands": (2, 700, 5000),
     # more query rows than the ring between two stripes holds: it wraps,
     # and the left stripe waits for the right one
     "long_m_wide": (6, 1500, 600),
@@ -106,12 +110,15 @@ def test_sw_score_kernel_matches_plain(dev, case, alpha):
     r[rng.random(r.shape) < 0.01] = 4
     qd, rd = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
     for params in SCORE_PARAMS:
-        n0 = cuda_sw.sw_score.launches, cuda_sw.sw_score.wide_launches
+        n0 = (cuda_sw.sw_score.launches, cuda_sw.sw_score.wide_launches,
+              cuda_sw.sw_score.band_launches)
         n_shape = cuda_sw.sw_score.shapes[(B, M, N)]
         got = cuda_sw.sw_score(qd, rd, *params)
         assert cuda_sw.sw_score.launches == n0[0] + 1
         assert cuda_sw.sw_score.wide_launches == n0[1] + int(
             N > cuda_sw.NARROW_MAX_N)
+        assert cuda_sw.sw_score.band_launches == n0[2] + int(
+            N > cuda_sw.WIDE_MAX_N)
         assert cuda_sw.sw_score.shapes[(B, M, N)] == n_shape + 1
         torch.testing.assert_close(
             got, cuda_sw.sw_score_plain(qd, rd, *params), rtol=0, atol=0)
@@ -128,14 +135,16 @@ def test_sw_score_kernel_on_unalignable_and_identical_rows(dev):
 
 
 def test_sw_kernels_raise_above_the_widest_reference(dev):
-    q = torch.zeros((2, 16), dtype=torch.uint8, device=dev)
-    r = torch.zeros((2, cuda_sw.MAX_N + 1), dtype=torch.uint8, device=dev)
-    n0 = cuda_sw.sw_align.launches
-    with pytest.raises(ValueError, match="widest"):
+    """The widest reference is the one whose cells overflow K1's int32
+    origin register: both wrappers raise there and launch nothing."""
+    q = torch.zeros((2, 1 << 12), dtype=torch.uint8, device=dev)
+    r = torch.zeros((2, 1 << 19), dtype=torch.uint8, device=dev)
+    n0 = cuda_sw.sw_align.launches, cuda_sw.sw_score.launches
+    with pytest.raises(ValueError, match="int32"):
         cuda_sw.sw_align(q, r)
-    with pytest.raises(ValueError, match="widest"):
+    with pytest.raises(ValueError, match="int32"):
         cuda_sw.sw_score(q, r)
-    assert cuda_sw.sw_align.launches == n0
+    assert (cuda_sw.sw_align.launches, cuda_sw.sw_score.launches) == n0
 
 
 # K1's (lanes a group, columns a lane) pairs for N <= 512, as
@@ -160,6 +169,10 @@ ALIGN_SHAPES = {
     "n769": (5, 200, 769), "n1000": (12, 1000, 1000),
     "n1024": (4, 300, 1024), "n1025": (4, 300, 1025),
     "n4096": (3, 256, 4096),
+    # wider than the block: bands of 4,096 columns (8 stripes), the last
+    # one column wide, or with more query rows than the ring holds
+    "n4097": (5, 200, 4097), "n8192": (3, 300, 8192),
+    "n8193": (3, 100, 8193), "long_m_bands": (2, 700, 5000),
     # more query rows than the ring between two stripes holds: it wraps,
     # and the left stripe waits for the right one
     "long_m_wide": (6, 1500, 600),
@@ -190,12 +203,15 @@ def test_sw_align_kernel_matches_plain(dev, case, alpha):
     q[B // 2] = 4  # a row that scores 0
     qd, rd = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
     for params in ALIGN_PARAMS:
-        n0 = cuda_sw.sw_align.launches, cuda_sw.sw_align.wide_launches
+        n0 = (cuda_sw.sw_align.launches, cuda_sw.sw_align.wide_launches,
+              cuda_sw.sw_align.band_launches)
         n_shape = cuda_sw.sw_align.shapes[(B, M, N)]
         got = cuda_sw.sw_align(qd, rd, *params)
         assert cuda_sw.sw_align.launches == n0[0] + 1
         assert cuda_sw.sw_align.wide_launches == n0[1] + int(
             N > cuda_sw.NARROW_MAX_N)
+        assert cuda_sw.sw_align.band_launches == n0[2] + int(
+            N > cuda_sw.WIDE_MAX_N)
         assert cuda_sw.sw_align.shapes[(B, M, N)] == n_shape + 1
         want = cuda_sw.sw_align_plain(qd, rd, *params)
         _, mismatch, go, ge = params

@@ -43,7 +43,10 @@ def test_every_port_module_is_listed():
                  "localhgt_tpu_torch.analysis.association",
                  "localhgt_tpu_torch.parallel.mesh",
                  "localhgt_tpu_torch.parallel.extract_sharded",
-                 "localhgt_tpu_torch.sim.grid"):
+                 "localhgt_tpu_torch.sim.grid",
+                 "localhgt_tpu_torch.tools.ab_reference",
+                 "localhgt_tpu_torch.tools.comparator_run",
+                 "localhgt_tpu_torch.tools.comparator_grid"):
         assert name in mods
 
 

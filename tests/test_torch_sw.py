@@ -1,8 +1,9 @@
 """Port parity: the plain versions of kernels K1 (sw_align) and K2
 (sw_score) against the Pallas kernels in interpret mode, the lax.scan
 formulation and the O(MN) numpy oracle; and the Gotoh form and the
-wavefront schedules of the CUDA kernels K1 and K2 (narrow groups, and K1's
-wide stripes with a lag and a ring), written out in numpy, against them.
+wavefront schedules of the CUDA kernels K1 and K2 (narrow groups, K1's
+wide stripes with a lag and a ring, and its sweep of bands joined by an
+edge buffer), written out in numpy, against them.
 Comparisons are exact."""
 
 import hypothesis
@@ -132,17 +133,17 @@ def test_tiled_entry_points_match_reference():
                                   sc[:2])
 
 
-@pytest.mark.parametrize("shape", [(4, 2, cuda_sw.MAX_N + 1),
-                                   (4, 1 << 19, cuda_sw.MAX_N)])
+@pytest.mark.parametrize("shape", [(4, 1 << 12, 1 << 19),
+                                   (4, 1 << 19, cuda_sw.WIDE_MAX_N)])
 def test_wrappers_reject_windows_above_the_kernels_limits(shape):
-    """Above MAX_N reference columns, or where i*(N+1)+j overflows int32,
-    both wrappers raise on every device (the plain version is not a
-    fallback)."""
+    """Where i*(N+1)+j overflows int32 (the origin register, the one limit
+    of the kernels' width: wider references sweep bands), both wrappers
+    raise on every device (the plain version is not a fallback)."""
     B, M, N = shape
     q = torch.zeros((B, M), dtype=torch.uint8)
     r = torch.zeros((B, N), dtype=torch.uint8)
     for fn in (cuda_sw.sw_align, cuda_sw.sw_score):
-        with pytest.raises(ValueError, match="widest|int32"):
+        with pytest.raises(ValueError, match="int32"):
             fn(q, r)
 
 
@@ -352,15 +353,18 @@ class _Lanes:
     lane's best cell, and what each lane left for the lane to its right
     (last H and O, outgoing E and its origin)."""
 
-    def __init__(self, q, r, lanes, NPL, params, guard):
+    def __init__(self, q, r, lanes, NPL, params, guard, col0=0):
         B, self.N = r.shape
         self.M = q.shape[1]
         self.NPL, self.params = NPL, params
         self.guard = guard
+        self.col0 = col0  # the first column of lane 0 (a band's)
         W = lanes * NPL
         # codes past N and query codes above 3 never match (kPadR, kPadQ)
         self.rc = np.full((B, W), 255, np.int64)
-        self.rc[:, :self.N] = np.where(r < 4, r, 255)
+        width = min(W, self.N - col0)
+        self.rc[:, :width] = np.where(r[:, col0:col0 + width] < 4,
+                                      r[:, col0:col0 + width], 255)
         self.qc = np.where(q < 4, q, 254).astype(np.int64)
         z = lambda n: np.zeros((B, n), np.int64)
         self.H, self.O, self.FO = z(W), z(W), z(W)
@@ -374,7 +378,7 @@ class _Lanes:
         match, mismatch, gap_open, gap_ext = self.params
         goe = gap_open + gap_ext
         H, O, F, FO = self.H, self.O, self.F, self.FO
-        base = i * (self.N + 1) + l * self.NPL
+        base = i * (self.N + 1) + self.col0 + l * self.NPL
         for c in range(self.NPL):
             j = l * self.NPL + c
             start = base + c
@@ -392,7 +396,7 @@ class _Lanes:
             F[:, j] = np.where(p, F[:, j] + gap_ext, h + goe)
             FO[:, j] = np.where(p, FO[:, j], o)
             H[:, j], O[:, j] = h, o
-            if self.guard and j >= self.N:
+            if self.guard and self.col0 + j >= self.N:
                 continue
             p = self.bH[:, l] >= h
             self.bH[:, l] = np.where(p, self.bH[:, l], h)
@@ -424,11 +428,16 @@ class _Lanes:
 
     def best(self):
         """Over the lanes: max H, then the smallest packed index."""
-        top = self.bH == self.bH.max(1, keepdims=True)
-        k = np.where(top, self.bPos, np.iinfo(np.int64).max).argmin(1)
-        rows = np.arange(len(k))
-        return _align_fields(self.bH[rows, k], self.bPos[rows, k],
-                             self.bO[rows, k], self.N)
+        return _best_of(self.bH, self.bPos, self.bO, self.N)
+
+
+def _best_of(bH, bPos, bO, N):
+    """The fields of the best cell among the columns of [B, n] bests: max
+    H, then the smallest packed index."""
+    top = bH == bH.max(1, keepdims=True)
+    k = np.where(top, bPos, np.iinfo(np.int64).max).argmin(1)
+    rows = np.arange(len(k))
+    return _align_fields(bH[rows, k], bPos[rows, k], bO[rows, k], N)
 
 
 def _wavefront_align_np(q, r, G, NPL, params, guard=False):
@@ -447,19 +456,28 @@ def _stripes_align_np(q, r, NPL, lag, ring, params, guard=False):
     (last H and O, outgoing E and origin of the left stripe's last lane)
     goes through a ring of `ring` rows; a slot is overwritten only after
     the right stripe read it, and read only when it holds its row."""
-    M, N = q.shape[1], r.shape[1]
-    S = -(-N // (32 * NPL))
+    S = -(-r.shape[1] // (32 * NPL))
     lanes = _Lanes(q, r, 32 * S, NPL, params, guard)
+    _run_stripes(lanes, S, lag, ring)
+    return lanes.best()
+
+
+def _run_stripes(lanes, S, lag, ring, edge_in=None, edge_out=None):
+    """The S stripes of `lanes`, stripe w `lag` steps behind stripe w-1,
+    the edge between two through a ring of `ring` rows. edge_in(i): row
+    i's left edge of the first stripe (0 and E's start where it is None);
+    edge_out(i, edge): the last stripe's outgoing edge of row i."""
+    M = lanes.M
     held = np.full((S, ring), -1)     # the row each slot holds
     read = np.full((S, ring), -1)     # the row last read from it
-    slots = np.zeros((S, ring, 4, q.shape[0]), np.int64)
+    slots = np.zeros((S, ring, 4, lanes.H.shape[0]), np.int64)
 
     def edge(w):
         def take(i):
             assert held[w - 1, i % ring] == i, ("not yet written", w, i)
             read[w - 1, i % ring] = i
             return slots[w - 1, i % ring]
-        return take if w else None
+        return take if w else edge_in
 
     T = M + 31
     for tau in range(T + (S - 1) * lag):
@@ -469,12 +487,53 @@ def _stripes_align_np(q, r, NPL, lag, ring, params, guard=False):
                 continue
             lanes.step(t, slice(32 * w, 32 * w + 32), edge(w))
             i = t - 31                # the stripe's last lane wrote row i
-            if 0 <= i < M and w + 1 < S:
+            if not 0 <= i < M:
+                continue
+            out = [x[:, 32 * w + 31] for x in lanes.left]
+            if w + 1 < S:
                 k = i % ring
                 assert held[w, k] < 0 or read[w, k] == held[w, k], (w, i)
                 held[w, k] = i
-                slots[w, k] = [x[:, 32 * w + 31] for x in lanes.left]
-    return lanes.best()
+                slots[w, k] = out
+            elif edge_out is not None:
+                edge_out(i, out)
+
+
+def _bands_align_np(q, r, NPL, S, lag, ring, params, guard=False):
+    """K1's sweep of a reference wider than its block: bands of S stripes
+    (32 lanes of NPL columns each), one after another. The last stripe of
+    a band writes its outgoing edge of every row into ONE buffer of M rows,
+    which the first stripe of the next band reads in place of column 0's
+    boundary: a row is overwritten only after that stripe read it, and read
+    only after the band before wrote it. A last band narrower than S
+    stripes runs only the stripes it has. Each lane's best of a band joins
+    the bests of the bands before, lexicographically."""
+    B, M = q.shape
+    N = r.shape[1]
+    width = 32 * NPL * S
+    buf = np.zeros((M, 4, B), np.int64)
+    written = np.full(M, -1)   # the band that wrote each row last
+    read = np.full(M, -1)      # the band that read it last
+    bests = []
+    for band, col0 in enumerate(range(0, N, width)):
+        stripes = min(S, -(-(N - col0) // (32 * NPL)))
+        lanes = _Lanes(q, r, 32 * stripes, NPL, params, guard, col0=col0)
+
+        def edge_in(i, band=band):
+            assert written[i] == band - 1, ("edge not yet written", band, i)
+            read[i] = band
+            return buf[i]
+
+        def edge_out(i, edge, band=band):
+            assert band == 0 or read[i] == band, ("edge not yet read", band, i)
+            buf[i] = edge
+            written[i] = band
+
+        _run_stripes(lanes, stripes, lag, ring,
+                     edge_in if band else None,
+                     edge_out if col0 + width < N else None)
+        bests.append((lanes.bH, lanes.bPos, lanes.bO))
+    return _best_of(*(np.concatenate(x, 1) for x in zip(*bests)), N)
 
 
 def _with_code4(q, r):
@@ -536,6 +595,33 @@ def test_sw_align_wide_stripes_match_plain(stripes):
                                       torch.from_numpy(r), *prm).numpy()
         got = _stripes_align_np(q, r, NPL, lag, ring, prm,
                                 guard=name in GUARDED_PARAMS)
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("bands", [(1, 3, 32, 8), (1, 3, 40, 64),
+                                   (2, 2, 33, 16)])
+def test_sw_align_bands_match_pallas(bands):
+    """(columns a lane, stripes a band, lag, ring rows): K1's sweep of a
+    reference wider than its block, with a band of 96 or 128 columns so
+    that N = 200 crosses three bands (the last of 8 columns, one stripe) or
+    two, equals the Pallas kernel in interpret mode on tie-heavy inputs,
+    start coordinates included, and K2's Pallas score; the guarded
+    parameters equal the plain version."""
+    NPL, S, lag, ring = bands
+    B, M, N = 6, 40, 200
+    q, r = _with_code4(*_tie_heavy(N + S + lag, B, M, N))
+    for name, prm in {**ALIGN_PARAMS, **GUARDED_PARAMS}.items():
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_ext"), prm))
+        got = _bands_align_np(q, r, NPL, S, lag, ring, prm,
+                              guard=name in GUARDED_PARAMS)
+        if name in GUARDED_PARAMS:
+            want = _plain_align(q, r, **kw)
+        else:
+            want = _pallas_align(q, r, **kw)
+            score = np.asarray(pallas_sw.sw_score_pallas(
+                jnp.asarray(q), jnp.asarray(r), tile=B, interpret=True,
+                **kw))
+            np.testing.assert_array_equal(got[:, 0], score, err_msg=name)
         np.testing.assert_array_equal(got, want, err_msg=name)
 
 
