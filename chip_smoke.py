@@ -15,8 +15,11 @@ Phases, each fatal on failure:
      128 and 160; K1 at the main path's median batch of 152, the record,
      and in a full tile of 8,192), K1/K2 also at validate_events' wide
      reference (B=512, M=N=1,000), K1/K2 also where the reference is
-     wider than their block and they sweep bands of 4,096 columns (B=64,
-     M=800, N = 4,097, 6,000 and 8,192, random and tie-heavy inputs),
+     wider than their block and they run in bands, a block a band in a
+     thread-block cluster (B=64, M=800, N = 4,097, 6,000 and 8,192, and
+     past the cluster's reach of 8 bands B=4, M=200, N=40,000 and B=2,
+     M=600, N=70,000: 18 bands in three rounds, with more query rows than
+     the ring between two blocks holds; random and tie-heavy inputs),
      K3 also at the main path's candidate density, at a ragged B, at a P
      that is no multiple of 4 and at the sharded vote's B;
   4. simulate the `big` fixture (100 genomes x 1 Mbp, 50 HGTs, depth 5,
@@ -89,8 +92,12 @@ COMPARATOR_REF = os.path.join(REPO, "reports", "comparator.csv")
 COMPARATOR_ROWS = {"localhgt_tpu_torch": "localhgt_tpu",
                    "localhgt_tpu_torch_direct": "localhgt_tpu_direct"}
 COMPARATOR_SCORES = ("recall", "fdr", "f1", "n_called")
-# references wider than the kernels' block (4,096 columns): bands
-BAND_WIDTHS = (4097, 6000, 8192)
+# references wider than the kernels' block (4,096 columns): bands, a block
+# each in a cluster; (B, M, N), the last two past the cluster's 8 bands
+# (round-robin, the wrap edge), the last with 18 bands and more query rows
+# than the ring between two blocks holds (256)
+BAND_SHAPES = ((64, 800, 4097), (64, 800, 6000), (64, 800, 8192),
+               (4, 200, 40_000), (2, 600, 70_000))
 BENCH_SCALE, BENCH_PAIRS = "species20", 101_335
 BENCH_TIMEOUT_S = 300
 STAGES = ("count", "scan", "peakset", "vote", "align", "rawbkp", "accbkp")
@@ -280,13 +287,13 @@ def check_kernels(dev) -> list:
     # its record carries 0 launches.
     out += sw_both(512, 1000, 1000, False, "_wide", True, True)
     sw_both(512, 1000, 1000, True, "_wide_tie_heavy", True, True)
-    # K1 and K2 past their block's 4,096 columns: the block sweeps bands.
-    # No path of the port has such a window (0 launches on each).
+    # K1 and K2 past their block's 4,096 columns: a block a band, the bands
+    # of an alignment in a cluster; past 8 bands round-robin with the wrap
+    # edge. No path of the port has such a window (0 launches on each).
     t = time.perf_counter()
-    for N in BAND_WIDTHS:
-        out += sw_both(64, 800, N, False, f"_bands_n{N}", True, True)
-        out += sw_both(64, 800, N, True, f"_bands_n{N}_tie_heavy", True,
-                       True)
+    for B, M, N in BAND_SHAPES:
+        out += sw_both(B, M, N, False, f"_bands_n{N}", True, True)
+        out += sw_both(B, M, N, True, f"_bands_n{N}_tie_heavy", True, True)
     log(f"[kernels] band rows in {time.perf_counter() - t:.1f} s")
     return out
 

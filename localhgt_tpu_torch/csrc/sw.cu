@@ -86,27 +86,54 @@
 // between two stripes (the left warp's last H and outgoing E of every row,
 // with their origins for K1) goes through a ring of 256 rows in shared
 // memory. A warp publishes the number of steps it has finished after every
-// 32; its right neighbour waits for the rows of its next 32 steps, and it
-// waits for its right neighbour before it overwrites rows of the ring. No
-// block barrier in the loop, and no warp waits for one to its right except
-// where the ring is full. The bests are reduced over the block once, at
-// the end.
+// 8 (K1) or 16 (K2); its right neighbour waits for the rows of its next 8
+// or 16 steps, and it waits for its right neighbour before it overwrites
+// rows of the ring. No block barrier in the loop, and no warp waits for one
+// to its right except where the ring is full. The stripes run 40 or 48
+// steps apart (32 for the lanes of a warp, and the span). The bests are
+// reduced over the block once, at the end.
 //
-// Wider references (N > 4096): the same block sweeps bands of 4096 columns
-// one after another, all its warps on one band at a time. The last warp of
-// a band writes its outgoing edge of every row (the int4 or int2 the ring
-// carries) to a buffer in device memory, M rows an alignment, that the
-// caller allocates; the first warp of the next band reads it, 32 rows at
-// a time into shared memory, in place of column 0's boundary. One buffer
-// serves every band: the last warp writes row i only after the first warp
-// has read it (row i of the last warp follows row i of the first through
-// the ring). A block barrier between two bands makes the edge visible. A
-// lane keeps its best cell of a band with the strict row-major rule and
-// folds it into the best of the bands before lexicographically, so the
-// tie rules above hold across bands.
+// Wider references (N > 4096): bands that run together, one block a band,
+// the bands of one alignment in one thread-block cluster. nb =
+// ceil(N / 4096) bands, balanced: each ceil(N / nb) columns rounded up to
+// whole stripes (N = 4,097 is two bands of 2,560 and 1,537 columns, not
+// 4,096 + 1), the block as many warps as a band has stripes (32 x 16
+// columns a warp in both kernels: K2's band block takes 16 columns a lane
+// where its wide block takes 8, half the stripes to lag behind each
+// other), the cluster min(nb, 8) blocks (8 is the portable cluster size).
+// The edge between two bands (the int4 or int2 that the ring
+// between two warps carries) goes from the last warp of block r into a
+// ring of kBandRows rows in block r+1's shared memory (distributed shared
+// memory), and its first warp reads it in place of column 0's boundary:
+// the same protocol as the ring between two warps, its counts at cluster
+// scope. The left block publishes the rows it has written in the right
+// block's shared memory (a release store); the right block publishes the
+// rows it has read in the left block's (also a release); each waits with
+// acquire loads. No block barrier between bands: the bands run some rows
+// apart, as the stripes of one block do. One cluster.sync() at the start,
+// before any block touches another's shared memory, one before exit.
+// Past the cluster's reach (more than 8 bands) the blocks take bands
+// round-robin: block r the bands r, r+8, r+16, ..., one after another
+// with a block barrier between two of its own. The counts of a ring run
+// on over those rounds (round k's row i is row k*M + i of one stream), so
+// a block may start its next band while its right neighbour still reads
+// the band before. The edge from the cluster's last block to its first
+// goes through device memory (`wrap`, M rows an alignment, which the
+// caller allocates): the first block reads that edge only after its whole
+// band before, so a ring would have to hold all M rows of it, and 16*M
+// bytes (K1) outgrow shared memory at M > 14,000. One wrap buffer serves
+// every round: band 16's row i is written after band 8 has computed row
+// i, which is after band 8 read row i of band 7's edge.
+// A lane keeps its best cell of a band with the strict row-major rule and
+// folds it into the best of its bands before lexicographically; each
+// block folds its warps' bests and puts the result into block 0's shared
+// memory, and block 0 folds the blocks' bests and writes the alignment's
+// result. The order (max H, then the smallest packed index) is a total
+// order, so the tie rules above hold across bands.
 //
 // Each entry point launches on the given stream and returns
-// cudaGetLastError(); it never synchronises or allocates.
+// cudaGetLastError(), the band entry points also the error of a cluster
+// launch that the card refuses; none synchronises or allocates.
 //
 // Tuning switches, set only by `python -m localhgt_tpu_torch.tune_sw`; the
 // package's own build defines none of them:
@@ -119,6 +146,7 @@
 //                          word a column (both kernels);
 //   LHT_SW_WIDE_NPL        columns a lane of K2's wide mapping.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -136,20 +164,38 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kNeg = -(1 << 28);
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNarrowMaxN = 16 * 32;  // the widest one-warp dispatch
 constexpr int kWideMaxWarps = 16;
-constexpr int kWideMaxN = 4096;  // the widest block; wider N sweeps bands
+constexpr int kWideMaxN = 4096;  // the widest block; wider N runs in bands
+constexpr int kClusterMax = 8;   // blocks a cluster: the portable size
+constexpr int kBandRows = 256;   // rows of the edge ring between two bands
 // 16 columns a lane in K1's wide mapping: fewer stripes, less lag between
 // them and a step's shuffles shared by more cells than 8 or 4 (tune_sw on
 // an H100)
 constexpr int kAlignWideNPL = 16;
 constexpr int kScoreWarps = 4;  // warps a block, N <= 512 (both kernels)
-// query rows staged at a time, and the steps between two progress counts
-// of a stripe of the wide mapping; a power of two
+// query rows staged at a time; a power of two
 constexpr int kChunk = 32;
 constexpr int kEdgeRows = 256;  // rows of a stripe's edge in the ring
+// steps between two waits and progress counts of a stripe of a wide or
+// band block (a divisor of kChunk): its stripes lag 32 + the span behind
+// each other, where once a chunk lets them lag 64. Measured with tune_sw
+// on an H100: at B=64, M=800, N=8,192 (with build switches since removed)
+// K1 1.1751 ms at 8 against 1.2128 at 16 and 1.2200 at 4, K2 0.5135 at 16
+// against 0.5294 at 8 and 0.5993 at 4; at B=512, M=N=1,000 K1 0.8315
+// against 0.8504 at 32, K2 0.3117 against 0.3170 at 32.
+constexpr int kAlignSync = 8;
+constexpr int kScoreSync = 16;
+static_assert(kChunk % kAlignSync == 0 && kChunk % kScoreSync == 0,
+              "a chunk is whole sync spans");
+// 16 columns a lane in K2's band kernel, where its wide block takes 8:
+// half the stripes, so half the lag between the first and the last (the
+// same measurement: 0.5135 ms against 0.6595 at 8 and 0.5872 at 12)
+constexpr int kScoreBandNPL = 16;
 // codes that never match: a query code above 3 and a reference code above
 // 3 (or a column past N) must differ from each other too
 constexpr int kPadQ = 254, kPadR = 255;
@@ -242,6 +288,66 @@ __device__ __forceinline__ void publish_progress(int* progress, int warp,
   }
 }
 
+// The counts between two bands' blocks: a count in this block's or a
+// neighbour's shared memory (a generic address from map_shared_rank),
+// written with release and read with acquire semantics at cluster scope.
+__device__ __forceinline__ void store_release_cluster(int* p, int v) {
+  asm volatile("st.release.cluster.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_at_least(const int* p, int need) {
+  for (;;) {
+    int v;
+    asm volatile("ld.acquire.cluster.s32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
+    if (v >= need) return;
+    __nanosleep(20);
+  }
+}
+
+// The balanced bands of a reference wider than the block (see the
+// header): warps a block and the number of bands. The kernel computes the
+// same number of bands from its block's width.
+void band_shape(int N, int stripe, int* warps, int* nbands) {
+  const int nb = (N + kWideMaxN - 1) / kWideMaxN;
+  const int per = (N + nb - 1) / nb;
+  *warps = (per + stripe - 1) / stripe;
+  *nbands = (N + *warps * stripe - 1) / (*warps * stripe);
+}
+
+// One launch of a band kernel: `nblocks` blocks an alignment in a cluster
+// of that size. Returns the error of a launch the card refuses, or
+// cudaErrorLaunchOutOfResources where no cluster of that size fits.
+template <typename... Args, typename... Actual>
+int launch_cluster(void (*kernel)(Args...), int nblocks, long long B,
+                   int threads, size_t smem, cudaStream_t s,
+                   Actual... args) {
+  if (B * nblocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)(B * nblocks));
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nblocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &config);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters == 0) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ K1
 
 // One query row against the NPL columns of a lane. hd, od: H and origin of
@@ -313,36 +419,54 @@ __device__ __forceinline__ void write_align(int32_t* ob, int bH, int bPos,
 // lane left one step earlier (last H and O, outgoing E and its origin).
 // kWide: one block per alignment, G = 32, warp w the stripe of 32*NPL
 // columns after warp w-1's; the edge between two stripes goes through a
-// ring in shared memory (see the header). kBands: the wide block sweeps
-// bands of kWideMaxN columns, joined through `edge` (M int4 an alignment;
+// ring in shared memory (see the header). kBands: one block a band, the
+// bands of an alignment in one cluster, the edge between two bands
+// through a ring in the right block's shared memory, and from the
+// cluster's last block to its first through `wrap` (M int4 an alignment;
 // see the header). kGuard: the best skips the columns past N, and the
 // substitution score is a compare and a select.
 template <int G, int NPL, bool kWide, bool kGuard, bool kBands = false>
 __global__ void __launch_bounds__(kWide ? kWideMaxN / NPL : 32 * kScoreWarps)
 sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
                 int32_t* __restrict__ out, long long B, int M, int N,
-                int match, int mismatch, int go, int ge, int4* edge) {
+                int match, int mismatch, int go, int ge, int4* wrap) {
   static_assert(!kWide || G == 32, "a stripe is a whole warp");
-  static_assert(!kBands || kWide, "a band is a sweep of the wide block");
+  static_assert(!kBands || kWide, "a band is a wide block");
   static_assert(G <= kChunk, "the query ring holds the rows of two chunks, "
                              "and a group's lanes are spread over G");
   constexpr int kGroups = 32 / G;
   // wide: as many warps as stripes of 32 * NPL columns cover kWideMaxN
   constexpr int kWarps = kWide ? kWideMaxN / (32 * NPL) : kScoreWarps;
   constexpr int kStripe = 32 * NPL;
-  constexpr int kBand = kWarps * kStripe;  // kBands: columns a band
   constexpr bool kTable = LHT_SW_TABLE && !kGuard;
+  // steps between two progress counts of a stripe (see kAlignSync); the
+  // narrow mapping has no neighbour to wait for and runs a chunk at once
+  constexpr int kSync = kWide ? kAlignSync : kChunk;
   __shared__ uint16_t sQuery[kWarps][kGroups][2 * kChunk];
   __shared__ int sProgress[kWarps];  // wide: steps each warp has finished
   __shared__ int sBest[3][kWarps];   // wide: each warp's best H, index, origin
-  __shared__ int4 sIn[kBands ? kChunk : 1];  // kBands: a chunk's left edge
   extern __shared__ int4 sRing[];    // wide: [warps - 1][kEdgeRows]
+  // kBands: the left edge from the wrap, a chunk of it; the ring the left
+  // block writes; the rows written into it and the rows the right block
+  // has read of this block's edge, both counted over every round; block
+  // 0: each block's best
+  __shared__ int4 sIn[kBands ? kChunk : 1];
+  __shared__ int4 sBandIn[kBands ? kBandRows : 1];
+  __shared__ int sLink[2];
+  __shared__ int sBlockBest[3][kBands ? kClusterMax : 1];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int lg = lane & (G - 1);
+  // kBands: the block's rank in its cluster and the cluster's size
+  int rank = 0, nblocks = 1;
   long long b;
-  if (kWide) {
+  if (kBands) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = (int)cluster.block_rank();
+    nblocks = (int)cluster.num_blocks();
+    b = blockIdx.x / nblocks;
+  } else if (kWide) {
     b = blockIdx.x;
   } else {
     b = ((long long)blockIdx.x * kScoreWarps + warp) * kGroups;
@@ -360,26 +484,53 @@ sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
   const int goe = go + ge;
   int bH = 0, bPos = 0, bO = 0;  // this lane's best cell (of the band)
   int aH = 0, aPos = 0, aO = 0;  // kBands: its best of the bands before
-  const int nbands = kBands ? (N + kBand - 1) / kBand : 1;
+  const int band_w = (blockDim.x >> 5) * kStripe;  // kBands: columns a band
+  const int nbands = kBands ? (N + band_w - 1) / band_w : 1;
+  // kBands: the right block's ring and count of rows written, the left
+  // block's count of rows read (the cluster's last block writes the wrap,
+  // and its first reads it)
+  int4* out_ring = nullptr;
+  int* out_written = nullptr;
+  int* in_read = nullptr;
+  if (kBands) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int right = rank + 1 < nblocks ? rank + 1 : 0;
+    out_ring = cluster.map_shared_rank(&sBandIn[0], right);
+    out_written = cluster.map_shared_rank(&sLink[0], right);
+    in_read = cluster.map_shared_rank(&sLink[1], rank > 0 ? rank - 1 : 0);
+    if (threadIdx.x == 0) sLink[0] = sLink[1] = 0;
+    cluster.sync();  // before any block touches another's shared memory
+  }
+  int4* wb = kBands ? wrap + b * M : nullptr;
 
-  for (int band = 0; band < nbands; ++band) {
-    const int col0 = band * kBand;
+  for (int band = rank; band < nbands; band += nblocks) {
+    const int col0 = band * band_w;  // 0 unless kBands
     // the warps that hold columns of this band: all but in a last band
-    // that is narrower than kBand
-    const int nwarps = kBands ? min(kWarps, (N - col0 + kStripe - 1) / kStripe)
+    // that is narrower
+    const int nwarps = kBands ? min((int)(blockDim.x >> 5),
+                                    (N - col0 + kStripe - 1) / kStripe)
                               : blockDim.x >> 5;
     if (kWide) {
-      if (kBands && band > 0) __syncthreads();  // the band before is done
+      if (kBands && band != rank) __syncthreads();  // its band before is done
       if (lane == 0) sProgress[warp] = 0;
       __syncthreads();
     }
     if (kBands && warp >= nwarps) continue;
     const int j0 = kWide ? col0 + (warp * 32 + lane) * NPL : lg * NPL;
-    // kBands: the first warp takes its left edge from `edge`, and the last
-    // warp of a band that has another after it writes its right edge there
-    const bool edge_in = kBands && band > 0 && warp == 0;
-    const bool edge_out = kBands && band + 1 < nbands && warp == nwarps - 1;
-    int4* eb = kBands ? edge + b * M : nullptr;
+    // kBands: the first warp takes its left edge from the ring (or the
+    // cluster's first block from the wrap), and the last warp of a band
+    // that has another after it writes its right edge there. Rows count
+    // on over the rounds: this round's edge in is row `in0` on of its
+    // stream, its edge out row `out0` on.
+    const int round = band / nblocks;
+    const bool has_left = kBands && band > 0 && warp == 0;
+    const bool has_right = kBands && band + 1 < nbands && warp == nwarps - 1;
+    const bool ring_in = has_left && rank > 0;
+    const bool wrap_in = has_left && rank == 0;
+    const bool ring_out = has_right && rank + 1 < nblocks;
+    const bool wrap_out = has_right && rank + 1 == nblocks;
+    const int in0 = (rank > 0 ? round : round - 1) * M;
+    const int out0 = round * M;
 
     int rc[NPL], H[NPL], O[NPL], F[NPL], FO[NPL];
 #pragma unroll
@@ -420,8 +571,9 @@ sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
             oleft = v.y;
             e = v.z;
             eo = v.w;
-          } else if (edge_in && active) {
-            const int4 v = sIn[i & (kChunk - 1)];
+          } else if ((ring_in || wrap_in) && active) {
+            const int4 v = ring_in ? sBandIn[(in0 + i) & (kBandRows - 1)]
+                                   : sIn[i & (kChunk - 1)];
             hleft = v.x;
             oleft = v.y;
             e = v.z;
@@ -442,8 +594,10 @@ sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
           const int4 v = make_int4(hlast, olast, eout, eoout);
           if (warp + 1 < nwarps)
             sRing[warp * kEdgeRows + (i & (kEdgeRows - 1))] = v;
-          else if (edge_out)
-            __stcg(eb + i, v);
+          else if (ring_out)
+            out_ring[(out0 + i) & (kBandRows - 1)] = v;
+          else if (wrap_out)
+            __stcg(wb + i, v);
         }
       }
       // the left lane's row i is this lane's row above next step
@@ -452,18 +606,43 @@ sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
     };
 
     const int T = M + G - 1;
+    // The steps [ts, te) between two progress counts: wait until the
+    // neighbours (wide: the stripes either side; kBands: also the blocks
+    // either side) let them run, run them, publish.
+    auto span = [&](int ts, int te) {
+      if (kWide) wait_for_neighbours(sProgress, warp, nwarps, te, T);
+      // the rows of the left edge these steps read are written; the right
+      // block has read the rows of the ring they overwrite
+      if (ring_in) wait_at_least(&sLink[0], in0 + min(te, M));
+      if (ring_out) wait_at_least(&sLink[1], out0 + te - 31 - kBandRows);
+      __syncwarp();
+      int t = ts;
+      for (; t < min(te, G - 1); ++t) step(t, std::false_type());
+      for (; t < min(te, M); ++t) step(t, std::true_type());
+      for (; t < te; ++t) step(t, std::false_type());
+      if (kWide) publish_progress(sProgress, warp, lane, te);
+      // the left block may overwrite the rows read; the right block may
+      // read the rows written (lane 0 read them, lane 31 wrote them)
+      if (ring_in && lane == 0)
+        store_release_cluster(in_read, in0 + min(te, M));
+      if ((ring_out || wrap_out) && lane == 31)
+        store_release_cluster(out_written, out0 + min(max(te - 31, 0), M));
+    };
     for (int t0 = 0; t0 < T; t0 += kChunk) {
       const int tend = min(t0 + kChunk, T);
       __syncwarp();
       stage_query<G, kTable>(myq, qb, M, t0, lg);
-      if (edge_in && t0 + lane < M) sIn[lane] = __ldcg(eb + t0 + lane);
-      if (kWide) wait_for_neighbours(sProgress, warp, nwarps, tend, T);
-      __syncwarp();
-      int t = t0;
-      for (; t < min(tend, G - 1); ++t) step(t, std::false_type());
-      for (; t < min(tend, M); ++t) step(t, std::true_type());
-      for (; t < tend; ++t) step(t, std::false_type());
-      if (kWide) publish_progress(sProgress, warp, lane, tend);
+      // the wrap's rows of this chunk, once they are written
+      if (wrap_in) {
+        wait_at_least(&sLink[0], in0 + min(tend, M));
+        if (t0 + lane < M) sIn[lane] = __ldcg(wb + t0 + lane);
+      }
+      if constexpr (kSync < kChunk) {
+        for (int ts = t0; ts < tend; ts += kSync)
+          span(ts, min(ts + kSync, tend));
+      } else {
+        span(t0, tend);
+      }
     }
     if (kBands) {
       take_better(aH, aPos, aO, bH, bPos, bO);
@@ -493,6 +672,25 @@ sw_align_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
     sBest[2][warp] = bO;
   }
   __syncthreads();
+  if (kBands) {
+    // every block's best into block 0's shared memory; block 0 folds them
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+        take_better(bH, bPos, bO, sBest[0][w], sBest[1][w], sBest[2][w]);
+      int* best0 = cluster.map_shared_rank(&sBlockBest[0][0], 0);
+      best0[rank] = bH;
+      best0[kClusterMax + rank] = bPos;
+      best0[2 * kClusterMax + rank] = bO;
+    }
+    cluster.sync();  // no block leaves while another may touch its memory
+    if (rank != 0 || threadIdx.x != 0) return;
+    for (int k = 1; k < nblocks; ++k)
+      take_better(bH, bPos, bO, sBlockBest[0][k], sBlockBest[1][k],
+                  sBlockBest[2][k]);
+    write_align(out + b * 5, bH, bPos, bO, np1);
+    return;
+  }
   if (threadIdx.x != 0) return;
   for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
     take_better(bH, bPos, bO, sBest[0][w], sBest[1][w], sBest[2][w]);
@@ -512,27 +710,43 @@ int launch_align(const uint8_t* q, const uint8_t* r, int32_t* out,
   return (int)cudaGetLastError();
 }
 
-// K1's wide block: N/512 warps for N <= kWideMaxN; kBands: all 8 warps,
-// sweeping the bands of a wider N through `edge`.
-template <bool kGuard, bool kBands>
+// K1's wide block: N/512 warps for N <= kWideMaxN.
+template <bool kGuard>
 int launch_align_wide(const uint8_t* q, const uint8_t* r, int32_t* out,
                       long long B, int M, int N, int match, int mismatch,
-                      int go, int ge, int4* edge, cudaStream_t s) {
+                      int go, int ge, cudaStream_t s) {
   constexpr int kStripe = 32 * kAlignWideNPL;
-  const int warps =
-      kBands ? kWideMaxN / kStripe : (N + kStripe - 1) / kStripe;
-  if ((!kBands && N > kWideMaxN) || B > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  const int warps = (N + kStripe - 1) / kStripe;
+  if (N > kWideMaxN || B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   // at most 7 edges of 256 rows (28 KB): within the 48 KB of dynamic
-  // shared memory a launch gets without cudaFuncSetAttribute
-  static_assert((kWideMaxN / kStripe - 1) * kEdgeRows * sizeof(int4) <=
-                    48 * 1024,
-                "K1 wide: the edge ring needs more than 48 KB");
+  // shared memory a launch gets without cudaFuncSetAttribute, beside the
+  // band kernel's 4 KB ring
+  static_assert((kWideMaxN / kStripe - 1) * kEdgeRows * sizeof(int4) +
+                        kBandRows * sizeof(int4) <=
+                    44 * 1024,
+                "K1 wide: the edge rings need more than 44 KB");
   const size_t ring = (size_t)(warps - 1) * kEdgeRows * sizeof(int4);
-  sw_align_kernel<32, kAlignWideNPL, true, kGuard, kBands>
+  sw_align_kernel<32, kAlignWideNPL, true, kGuard>
       <<<(unsigned)B, 32 * warps, ring, s>>>(q, r, out, B, M, N, match,
-                                             mismatch, go, ge, edge);
+                                             mismatch, go, ge, nullptr);
   return (int)cudaGetLastError();
+}
+
+// K1 past kWideMaxN columns: one block of up to 8 warps a band, the bands
+// of an alignment in a cluster (see the header). `wrap` may be null where
+// there are at most kClusterMax bands.
+template <bool kGuard>
+int launch_align_bands(const uint8_t* q, const uint8_t* r, int32_t* out,
+                       long long B, int M, int N, int match, int mismatch,
+                       int go, int ge, int4* wrap, cudaStream_t s) {
+  int warps, nbands;
+  band_shape(N, 32 * kAlignWideNPL, &warps, &nbands);
+  if (nbands > kClusterMax && wrap == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t ring = (size_t)(warps - 1) * kEdgeRows * sizeof(int4);
+  return launch_cluster(sw_align_kernel<32, kAlignWideNPL, true, kGuard, true>,
+                        min(nbands, kClusterMax), B, 32 * warps, ring, s, q,
+                        r, out, B, M, N, match, mismatch, go, ge, wrap);
 }
 
 // (lanes a group, columns a lane) of K1 for N <= 512, narrowest first: the
@@ -598,35 +812,45 @@ __device__ __forceinline__ int row_best(const int (&H)[NPL], int best,
 // last column), and no scan. kWide: one block per alignment, G = 32, warp w
 // the stripe of 32*NPL columns after warp w-1's; the edge between two
 // stripes goes through a ring in shared memory (see the header). kBands:
-// the wide block sweeps bands of kWideMaxWarps stripes, joined through
-// `edge` (M int2 an alignment; see the header).
+// one block a band, the bands of an alignment in one cluster, joined as
+// K1's (M int2 an alignment in `wrap`; see the header).
 // kGuard: the maximum skips the columns past N, and the substitution score
 // is a compare and a select whatever LHT_SW_TABLE says (see lht_sw_score).
 template <int G, int NPL, bool kWide, bool kGuard, bool kBands = false>
 __global__ void __launch_bounds__(32 * (kWide ? kWideMaxWarps : kScoreWarps))
 sw_score_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
                 int32_t* __restrict__ out, long long B, int M, int N,
-                int match, int mismatch, int go, int ge, int2* edge) {
+                int match, int mismatch, int go, int ge, int2* wrap) {
   static_assert(!kWide || G == 32, "a stripe is a whole warp");
-  static_assert(!kBands || kWide, "a band is a sweep of the wide block");
+  static_assert(!kBands || kWide, "a band is a wide block");
   static_assert(G <= kChunk, "the query ring holds the rows of two chunks, "
                              "and a group's lanes are spread over G");
   constexpr int kGroups = 32 / G;
   constexpr int kWarps = kWide ? kWideMaxWarps : kScoreWarps;
   constexpr int kStripe = 32 * NPL;
-  constexpr int kBand = kWarps * kStripe;  // kBands: columns a band
   constexpr bool kTable = LHT_SW_TABLE && !kGuard;
+  constexpr int kSync = kWide ? kScoreSync : kChunk;
   __shared__ uint16_t sQuery[kWarps][kGroups][2 * kChunk];
   __shared__ int sProgress[kWarps];  // wide: steps each warp has finished
   __shared__ int sBest[kWarps];
-  __shared__ int2 sIn[kBands ? kChunk : 1];  // kBands: a chunk's left edge
   extern __shared__ int2 sEdge[];  // wide: [warps - 1][kEdgeRows] (H, E)
+  // kBands: as in K1
+  __shared__ int2 sIn[kBands ? kChunk : 1];
+  __shared__ int2 sBandIn[kBands ? kBandRows : 1];
+  __shared__ int sLink[2];
+  __shared__ int sBlockBest[kBands ? kClusterMax : 1];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int lg = lane & (G - 1);
+  int rank = 0, nblocks = 1;  // kBands: rank in the cluster, its size
   long long b;
-  if (kWide) {
+  if (kBands) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = (int)cluster.block_rank();
+    nblocks = (int)cluster.num_blocks();
+    b = blockIdx.x / nblocks;
+  } else if (kWide) {
     b = blockIdx.x;
   } else {
     b = ((long long)blockIdx.x * kScoreWarps + warp) * kGroups;
@@ -642,26 +866,46 @@ sw_score_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
   uint16_t* myq = sQuery[warp][lane / G];
   const int goe = go + ge;
   int best = 0;  // over every band: the maximum needs no order
-  const int nbands = kBands ? (N + kBand - 1) / kBand : 1;
+  const int band_w = (blockDim.x >> 5) * kStripe;  // kBands: columns a band
+  const int nbands = kBands ? (N + band_w - 1) / band_w : 1;
+  int2* out_ring = nullptr;
+  int* out_written = nullptr;
+  int* in_read = nullptr;
+  if (kBands) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int right = rank + 1 < nblocks ? rank + 1 : 0;
+    out_ring = cluster.map_shared_rank(&sBandIn[0], right);
+    out_written = cluster.map_shared_rank(&sLink[0], right);
+    in_read = cluster.map_shared_rank(&sLink[1], rank > 0 ? rank - 1 : 0);
+    if (threadIdx.x == 0) sLink[0] = sLink[1] = 0;
+    cluster.sync();  // before any block touches another's shared memory
+  }
+  int2* wb = kBands ? wrap + b * M : nullptr;
 
-  for (int band = 0; band < nbands; ++band) {
-    const int col0 = band * kBand;
+  for (int band = rank; band < nbands; band += nblocks) {
+    const int col0 = band * band_w;  // 0 unless kBands
     // the warps that hold columns of this band: all but in a last band
-    // that is narrower than kBand
-    const int nwarps = kBands ? min(kWarps, (N - col0 + kStripe - 1) / kStripe)
+    // that is narrower
+    const int nwarps = kBands ? min((int)(blockDim.x >> 5),
+                                    (N - col0 + kStripe - 1) / kStripe)
                               : blockDim.x >> 5;
     if (kWide) {
-      if (kBands && band > 0) __syncthreads();  // the band before is done
+      if (kBands && band != rank) __syncthreads();  // its band before is done
       if (lane == 0) sProgress[warp] = 0;
       __syncthreads();
     }
     if (kBands && warp >= nwarps) continue;
     const int j0 = kWide ? col0 + (warp * 32 + lane) * NPL : lg * NPL;
-    // kBands: the first warp takes its left edge from `edge`, and the last
-    // warp of a band that has another after it writes its right edge there
-    const bool edge_in = kBands && band > 0 && warp == 0;
-    const bool edge_out = kBands && band + 1 < nbands && warp == nwarps - 1;
-    int2* eb = kBands ? edge + b * M : nullptr;
+    // kBands: the edges between bands, as in K1
+    const int round = band / nblocks;
+    const bool has_left = kBands && band > 0 && warp == 0;
+    const bool has_right = kBands && band + 1 < nbands && warp == nwarps - 1;
+    const bool ring_in = has_left && rank > 0;
+    const bool wrap_in = has_left && rank == 0;
+    const bool ring_out = has_right && rank + 1 < nblocks;
+    const bool wrap_out = has_right && rank + 1 == nblocks;
+    const int in0 = (rank > 0 ? round : round - 1) * M;
+    const int out0 = round * M;
 
     int rc[NPL], H[NPL], F[NPL];
 #pragma unroll
@@ -692,8 +936,9 @@ sw_score_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
                 sEdge[(warp - 1) * kEdgeRows + (i & (kEdgeRows - 1))];
             hleft = v.x;
             e = v.y;
-          } else if (edge_in && active) {
-            const int2 v = sIn[i & (kChunk - 1)];
+          } else if ((ring_in || wrap_in) && active) {
+            const int2 v = ring_in ? sBandIn[(in0 + i) & (kBandRows - 1)]
+                                   : sIn[i & (kChunk - 1)];
             hleft = v.x;
             e = v.y;
           }
@@ -709,26 +954,46 @@ sw_score_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
           const int2 v = make_int2(hlast, eout);
           if (warp + 1 < nwarps)
             sEdge[warp * kEdgeRows + (i & (kEdgeRows - 1))] = v;
-          else if (edge_out)
-            __stcg(eb + i, v);
+          else if (ring_out)
+            out_ring[(out0 + i) & (kBandRows - 1)] = v;
+          else if (wrap_out)
+            __stcg(wb + i, v);
         }
       }
       hprev = hleft;  // the left lane's row i is this lane's row above next
     };
 
     const int T = M + G - 1;
+    // The steps [ts, te) between two progress counts, as in K1.
+    auto span = [&](int ts, int te) {
+      if (kWide) wait_for_neighbours(sProgress, warp, nwarps, te, T);
+      if (ring_in) wait_at_least(&sLink[0], in0 + min(te, M));
+      if (ring_out) wait_at_least(&sLink[1], out0 + te - 31 - kBandRows);
+      __syncwarp();
+      int t = ts;
+      for (; t < min(te, G - 1); ++t) step(t, std::false_type());
+      for (; t < min(te, M); ++t) step(t, std::true_type());
+      for (; t < te; ++t) step(t, std::false_type());
+      if (kWide) publish_progress(sProgress, warp, lane, te);
+      if (ring_in && lane == 0)
+        store_release_cluster(in_read, in0 + min(te, M));
+      if ((ring_out || wrap_out) && lane == 31)
+        store_release_cluster(out_written, out0 + min(max(te - 31, 0), M));
+    };
     for (int t0 = 0; t0 < T; t0 += kChunk) {
       const int tend = min(t0 + kChunk, T);
       __syncwarp();
       stage_query<G, kTable>(myq, qb, M, t0, lg);
-      if (edge_in && t0 + lane < M) sIn[lane] = __ldcg(eb + t0 + lane);
-      if (kWide) wait_for_neighbours(sProgress, warp, nwarps, tend, T);
-      __syncwarp();
-      int t = t0;
-      for (; t < min(tend, G - 1); ++t) step(t, std::false_type());
-      for (; t < min(tend, M); ++t) step(t, std::true_type());
-      for (; t < tend; ++t) step(t, std::false_type());
-      if (kWide) publish_progress(sProgress, warp, lane, tend);
+      if (wrap_in) {  // the wrap's rows of this chunk, once they are written
+        wait_at_least(&sLink[0], in0 + min(tend, M));
+        if (t0 + lane < M) sIn[lane] = __ldcg(wb + t0 + lane);
+      }
+      if constexpr (kSync < kChunk) {
+        for (int ts = t0; ts < tend; ts += kSync)
+          span(ts, min(ts + kSync, tend));
+      } else {
+        span(t0, tend);
+      }
     }
   }
 
@@ -741,6 +1006,19 @@ sw_score_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ r,
   }
   if (lane == 0) sBest[warp] = best;
   __syncthreads();
+  if (kBands) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+        best = max(best, sBest[w]);
+      cluster.map_shared_rank(&sBlockBest[0], 0)[rank] = best;
+    }
+    cluster.sync();  // no block leaves while another may touch its memory
+    if (rank != 0 || threadIdx.x != 0) return;
+    for (int k = 1; k < nblocks; ++k) best = max(best, sBlockBest[k]);
+    out[b] = best;
+    return;
+  }
   if (threadIdx.x != 0) return;
   for (int w = 1; w < (int)(blockDim.x >> 5); ++w) best = max(best, sBest[w]);
   out[b] = best;
@@ -843,21 +1121,37 @@ int launch_score(const uint8_t* q, const uint8_t* r, int32_t* out,
   return (int)cudaGetLastError();
 }
 
-// K2's wide block: N/256 warps for N <= kWideMaxN; kBands: all 16 warps,
-// sweeping the bands of a wider N through `edge`.
-template <bool kGuard, bool kBands>
+// K2's wide block: N/256 warps for N <= kWideMaxN.
+template <bool kGuard>
 int launch_score_wide(const uint8_t* q, const uint8_t* r, int32_t* out,
                       long long B, int M, int N, int match, int mismatch,
-                      int go, int ge, int2* edge, cudaStream_t s) {
+                      int go, int ge, cudaStream_t s) {
   constexpr int kStripe = 32 * LHT_SW_WIDE_NPL;
-  const int warps = kBands ? kWideMaxWarps : (N + kStripe - 1) / kStripe;
+  const int warps = (N + kStripe - 1) / kStripe;
   if (warps > kWideMaxWarps || B > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const size_t ring = (size_t)(warps - 1) * kEdgeRows * sizeof(int2);
-  sw_score_kernel<32, LHT_SW_WIDE_NPL, true, kGuard, kBands>
+  sw_score_kernel<32, LHT_SW_WIDE_NPL, true, kGuard>
       <<<(unsigned)B, 32 * warps, ring, s>>>(q, r, out, B, M, N, match,
-                                             mismatch, go, ge, edge);
+                                             mismatch, go, ge, nullptr);
   return (int)cudaGetLastError();
+}
+
+// K2 past kWideMaxN columns: one block a band (up to 8 warps of 32 x
+// kScoreBandNPL columns), the bands of an alignment in a cluster, as K1's.
+template <bool kGuard>
+int launch_score_bands(const uint8_t* q, const uint8_t* r, int32_t* out,
+                       long long B, int M, int N, int match, int mismatch,
+                       int go, int ge, int2* wrap, cudaStream_t s) {
+  int warps, nbands;
+  band_shape(N, 32 * kScoreBandNPL, &warps, &nbands);
+  if (warps > kWideMaxWarps || (nbands > kClusterMax && wrap == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t ring = (size_t)(warps - 1) * kEdgeRows * sizeof(int2);
+  return launch_cluster(
+      sw_score_kernel<32, kScoreBandNPL, true, kGuard, true>,
+      min(nbands, kClusterMax), B, 32 * warps, ring, s, q, r, out, B, M, N,
+      match, mismatch, go, ge, wrap);
 }
 
 // (lanes a group, columns a lane) for N <= 512, narrowest first: the first
@@ -884,12 +1178,10 @@ extern "C" int lht_sw_align(const uint8_t* q, const uint8_t* r, int32_t* out,
   const bool plain = table_fits(match, mismatch, go, ge);
   if (N > kNarrowMaxN) {
     if (N > kWideMaxN) return (int)cudaErrorInvalidValue;  // bands
-    return plain ? launch_align_wide<false, false>(q, r, out, B, M, N, match,
-                                                   mismatch, go, ge, nullptr,
-                                                   s)
-                 : launch_align_wide<true, false>(q, r, out, B, M, N, match,
-                                                  mismatch, go, ge, nullptr,
-                                                  s);
+    return plain ? launch_align_wide<false>(q, r, out, B, M, N, match,
+                                            mismatch, go, ge, s)
+                 : launch_align_wide<true>(q, r, out, B, M, N, match,
+                                           mismatch, go, ge, s);
   }
   if (!plain)
     return launch_align<32, 16, true>(q, r, out, B, M, N, match, mismatch,
@@ -911,12 +1203,10 @@ extern "C" int lht_sw_score(const uint8_t* q, const uint8_t* r, int32_t* out,
   const bool plain = table_fits(match, mismatch, go, ge);
   if (N > kNarrowMaxN) {
     if (N > kWideMaxN) return (int)cudaErrorInvalidValue;  // bands
-    return plain ? launch_score_wide<false, false>(q, r, out, B, M, N, match,
-                                                   mismatch, go, ge, nullptr,
-                                                   s)
-                 : launch_score_wide<true, false>(q, r, out, B, M, N, match,
-                                                  mismatch, go, ge, nullptr,
-                                                  s);
+    return plain ? launch_score_wide<false>(q, r, out, B, M, N, match,
+                                            mismatch, go, ge, s)
+                 : launch_score_wide<true>(q, r, out, B, M, N, match,
+                                           mismatch, go, ge, s);
   }
   if (!plain)
     return launch_score<32, 16, true>(q, r, out, B, M, N, match, mismatch,
@@ -930,36 +1220,38 @@ extern "C" int lht_sw_score(const uint8_t* q, const uint8_t* r, int32_t* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// N > kWideMaxN: the wide block sweeps bands of kWideMaxN columns. `edge`
-// is the caller's buffer for the edge between two bands: B x M int4 (K1:
+// N > kWideMaxN: bands in a cluster (see the header). `wrap` is the
+// caller's buffer for the edge from the cluster's last block to its first,
+// needed only past kClusterMax bands (else it may be null): B x M int4 (K1:
 // H, its origin, E, its origin) or int2 (K2: H, E), device memory that the
-// kernel overwrites.
+// kernel overwrites. Returns the launch's error, also where the card
+// cannot hold a cluster of the bands' blocks.
 extern "C" int lht_sw_align_bands(const uint8_t* q, const uint8_t* r,
                                   int32_t* out, long long B, int M, int N,
                                   int match, int mismatch, int go, int ge,
-                                  void* edge, void* stream) {
+                                  void* wrap, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (N <= kWideMaxN || edge == nullptr) return (int)cudaErrorInvalidValue;
+  if (N <= kWideMaxN) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int4* e = (int4*)edge;
+  int4* w = (int4*)wrap;
   return table_fits(match, mismatch, go, ge)
-             ? launch_align_wide<false, true>(q, r, out, B, M, N, match,
-                                              mismatch, go, ge, e, s)
-             : launch_align_wide<true, true>(q, r, out, B, M, N, match,
-                                             mismatch, go, ge, e, s);
+             ? launch_align_bands<false>(q, r, out, B, M, N, match, mismatch,
+                                         go, ge, w, s)
+             : launch_align_bands<true>(q, r, out, B, M, N, match, mismatch,
+                                        go, ge, w, s);
 }
 
 extern "C" int lht_sw_score_bands(const uint8_t* q, const uint8_t* r,
                                   int32_t* out, long long B, int M, int N,
                                   int match, int mismatch, int go, int ge,
-                                  void* edge, void* stream) {
+                                  void* wrap, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (N <= kWideMaxN || edge == nullptr) return (int)cudaErrorInvalidValue;
+  if (N <= kWideMaxN) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int2* e = (int2*)edge;
+  int2* w = (int2*)wrap;
   return table_fits(match, mismatch, go, ge)
-             ? launch_score_wide<false, true>(q, r, out, B, M, N, match,
-                                              mismatch, go, ge, e, s)
-             : launch_score_wide<true, true>(q, r, out, B, M, N, match,
-                                             mismatch, go, ge, e, s);
+             ? launch_score_bands<false>(q, r, out, B, M, N, match, mismatch,
+                                         go, ge, w, s)
+             : launch_score_bands<true>(q, r, out, B, M, N, match, mismatch,
+                                        go, ge, w, s);
 }

@@ -7,7 +7,7 @@ CUDA kernel of `csrc/sw.cu` for CUDA tensors and its plain torch version
 tensors) for CPU tensors, and raises on anything else.
 Each wrapper counts its kernel launches in `<wrapper>.launches`, those of
 the wide-reference variant (N > NARROW_MAX_N) also in
-`<wrapper>.wide_launches`, those that sweep bands (N > WIDE_MAX_N) also in
+`<wrapper>.wide_launches`, those that run in bands (N > WIDE_MAX_N) also in
 `<wrapper>.band_launches`, and its launches by (B, M, N) in
 `<wrapper>.shapes`.
 
@@ -20,9 +20,14 @@ at step t, the recurrence in the Gotoh form on Hopper's DPX
 instructions, the substitution score by one byte permute out of a table
 word a column; above NARROW_MAX_N columns one block
 per alignment, a warp a stripe, the stripes joined through a ring in
-shared memory without a block barrier; above WIDE_MAX_N columns that block
-sweeps bands of WIDE_MAX_N columns, one after another, the edge between
-two bands in a buffer of M rows an alignment that the wrapper allocates.
+shared memory without a block barrier; above WIDE_MAX_N columns one such
+block a band, the bands of an alignment in a thread-block cluster of up
+to 8 blocks, running together, the edge between two bands through a ring
+in the right block's shared memory (distributed shared memory). Past 8
+bands the blocks take bands round-robin and the edge from the cluster's
+last block to its first goes through a buffer of M rows an alignment
+that the wrapper allocates. A band launch that the card refuses (no
+cluster of that size fits) raises, as any launch error does.
 K1 also carries the origin of H, E
 and F (the packed index of the cell that started the alignment): each
 maximum with its winner is one `__vibmax_s32` and a select, with the
@@ -43,17 +48,19 @@ from localhgt_tpu_torch import _build
 NEG = -(1 << 28)
 # csrc/sw.cu runs N <= NARROW_MAX_N on one warp (K2: one group of lanes)
 # per alignment, NARROW_MAX_N < N <= WIDE_MAX_N on one block of N/512 (K2:
-# N/256) warps, and a wider N on that block in bands of WIDE_MAX_N columns
+# N/256) warps, and a wider N in ceil(N / WIDE_MAX_N) bands, a block each,
+# in a cluster of at most 8 blocks (the portable cluster size)
 NARROW_MAX_N = 512
 WIDE_MAX_N = 4096
 MAX_CELLS = 1 << 31  # the origin register packs i*(N+1)+j into int32
-# int32 words of the edge between two bands, a query row: K1 carries H, E
-# and their origins, K2 H and E
+# int32 words of the edge from a cluster's last block to its first, a
+# query row: K1 carries H, E and their origins, K2 H and E (csrc/sw.cu
+# reads and writes it only past 8 bands)
 EDGE_WORDS = {"lht_sw_align_bands": 4, "lht_sw_score_bands": 2}
 
 _P = ctypes.c_void_p
 # lht_sw_align and lht_sw_score: q, r, out, B, M, N, match, mismatch, open,
-# ext, stream; the _bands entry points take the edge buffer before stream
+# ext, stream; the _bands entry points take the wrap buffer before stream
 SIGNATURE = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
 BANDS_SIGNATURE = SIGNATURE[:-1] + [_P, _P]
@@ -104,19 +111,18 @@ def _check_inputs(q: torch.Tensor, r: torch.Tensor) -> None:
 
 def launch(lib, fn: str, q, r, out, match, mismatch, gap_open, gap_ext):
     """Launch entry point `fn` of a loaded build of csrc/sw.cu (the
-    package's own, or a variant that `tune_sw` built). A `_bands` entry
-    point gets its edge buffer, allocated here: M rows of EDGE_WORDS[fn]
-    int32 an alignment."""
+    package's own, or a variant that `tune_sw` built); raises on any error
+    the entry point returns. A `_bands` entry point gets its wrap buffer,
+    allocated here: M rows of EDGE_WORDS[fn] int32 an alignment."""
     q = q.contiguous()
     r = r.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = [q.data_ptr(), r.data_ptr(), out.data_ptr(), q.shape[0],
             q.shape[1], r.shape[1], match, mismatch, gap_open, gap_ext]
-    edge = None
     if fn in EDGE_WORDS:
-        edge = torch.empty((q.shape[0], q.shape[1], EDGE_WORDS[fn]),
+        wrap = torch.empty((q.shape[0], q.shape[1], EDGE_WORDS[fn]),
                            dtype=torch.int32, device=q.device)
-        args.append(edge.data_ptr())
+        args.append(wrap.data_ptr())
     with torch.cuda.device(q.device):  # a launch goes to the current device
         err = getattr(lib, fn)(*args, stream)
     _build.check(err, fn)
@@ -168,8 +174,11 @@ def sw_align_plain(q: torch.Tensor, r: torch.Tensor, match=1, mismatch=-4,
         # H >= 0 already: H1 >= 0, and E replaces it only when greater
         H, O = maxpair(H1, O1, Tm + o + jpos * e, TmO)
         Mf, MfO = maxpair(Mf, MfO, H - i * e, O)
-        # row best: max H, then min j (pack is unique per j)
-        rowPack, rowJ = (H * N + (N - 1 - jpos)).max(dim=1, keepdim=True)
+        # row best: max H, then min j (pack is unique per j); in int64,
+        # since H * N passes 2^31 where scores grow with the row (Pallas
+        # packs in int32, and its row best wraps there)
+        rowPack, rowJ = (H.long() * N + (N - 1 - jpos)).max(dim=1,
+                                                             keepdim=True)
         rowH = torch.div(rowPack, N, rounding_mode="floor")
         rowO = torch.gather(O, 1, rowJ)
         better = rowH > bH

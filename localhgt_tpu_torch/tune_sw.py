@@ -8,22 +8,27 @@ in their mappings on one card.
 Builds csrc/sw.cu once per variant with `-DLHT_SW_*` / `-DLHT_SWA_*` flags
 (lanes a group and columns a lane, wavefront or row-by-row scan, the
 substitution score by table or by compare and select, columns a lane of
-the wide mappings), all nvcc runs started together, each with `-Xptxas
+K2's wide mapping), all nvcc runs started together, each with `-Xptxas
 -v` (registers and spills of every kernel). Every variant is held exactly
 against the plain version of the kernel it tunes (`sw_score_plain` for
 K2, `sw_align_plain` for K1), on planted and on tie-heavy reads, and then
 timed with CUDA events: K2 at B=8,192 for M=N in 96, 128, 160 and at
 B=512, M=N=1,000; K1 at M=192, N=256 (align's windows) for B from the
-main path's 152 to 8,192, and at B=512, M=N=1,000 (validate_events').
-`--parent DIR` times `sw_score` and `sw_align` of another checkout of the
-package (a subprocess in DIR) on the same inputs, before and after the
-variants. `--real` also simulates the `big` fixture, runs `bkp` at k=32
-and prints the (B, M, N) of every K1 and K2 launch. `--sass` writes
+main path's 152 to 8,192, and at B=512, M=N=1,000 (validate_events');
+both past 4,096 columns, in bands, at B=64, M=800, N = 4,097, 6,000 and
+8,192 (`lht_sw_*_bands`).
+`--parent DIR` times the kernels of another checkout of the package (a
+subprocess in DIR builds and loads its csrc/sw.cu) on the same inputs and
+through its `cuda_sw.launch`, as the variants are timed, before and after
+the variants. `--real` also simulates the `big` fixture, runs `bkp` at
+k=32 and prints the (B, M, N) of every K1 and K2 launch. `--sass` writes
 `cuobjdump -sass` of the package's variant to a file and prints, for K1's
 kernels, the opcodes of every loop and the integer-pipe instructions a
-cell (what the bound's count is read from); `--count` prints the same
-from such a file and needs no card. It prints the card's name and power
-limit. Imports nothing of JAX.
+cell (what the bound's count is read from), and the registers, stack and
+local (spilled) bytes of every band kernel (`cuobjdump -res-usage`); with
+`--parent` also whether each kernel's SASS is the same as that of the
+parent's build. `--count` prints the loops from such a file and needs no
+card. It prints the card's name and power limit. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -46,8 +51,8 @@ import torch
 from localhgt_tpu_torch.tune_vote import BIG, card_line, time_ms
 
 # name -> (nvcc -D flags, kernels it tunes, the widest N the variant takes
-# or None, serves narrow windows, serves wide windows). "package" is what
-# the package builds.
+# or None, serves narrow windows, serves wider ones: the wide block and the
+# bands). "package" is what the package builds.
 VARIANTS = {
     "package": ((), "K1 K2", None, True, True),
     "compare_select": (("-DLHT_SW_TABLE=0",), "K1 K2", None, True, True),
@@ -61,7 +66,7 @@ VARIANTS = {
     "g4_npl40": (("-DLHT_SW_G=4", "-DLHT_SW_NPL=40"), "K2", 160, True, False),
     "scan_g16_npl10": (("-DLHT_SW_SCAN=1", "-DLHT_SW_G=16",
                         "-DLHT_SW_NPL=10"), "K2", 160, True, False),
-    "wide_npl16": (("-DLHT_SW_WIDE_NPL=16",), "K2", None, False, True),
+    "wide_npl16": (("-DLHT_SW_WIDE_NPL=16",), "K2", 4096, False, True),
     "align_g8_npl32": (("-DLHT_SWA_G=8", "-DLHT_SWA_NPL=32"), "K1", 256,
                        True, False),
     "align_g16_npl16": (("-DLHT_SWA_G=16", "-DLHT_SWA_NPL=16"), "K1", 256,
@@ -72,30 +77,37 @@ VARIANTS = {
 # validate_events; K1 at align's windows (150-bp reads padded to 192, 32
 # columns either side) in a full tile of 8,192, at the median batch of the
 # main path (152; 61 to 242 on `big`) and at batches between, and at
-# validate_events' windows
+# validate_events' windows; both past WIDE_MAX_N columns, in bands, at the
+# shapes of chip_smoke.py's band rows
+BAND_SHAPES = [(64, 800, 4097), (64, 800, 6000), (64, 800, 8192)]
 KERNELS = {
     "K2": ("lht_sw_score", "sw_score_plain",
            [(8192, 96, 96), (8192, 128, 128), (8192, 160, 160),
-            (512, 1000, 1000)]),
+            (512, 1000, 1000), *BAND_SHAPES]),
     "K1": ("lht_sw_align", "sw_align_plain",
            [(8192, 192, 256), (152, 192, 256), (1024, 192, 256),
-            (2048, 192, 256), (4096, 192, 256), (512, 1000, 1000)]),
+            (2048, 192, 256), (4096, 192, 256), (512, 1000, 1000),
+            *BAND_SHAPES]),
 }
+# the parent's build timed as the variants are: `run` through its
+# `cuda_sw.launch`
 PARENT_SNIPPET = """
 import json, sys, torch
 sys.path.insert(0, {here!r})
-from localhgt_tpu_torch.tune_sw import KERNELS, device_inputs
+from localhgt_tpu_torch.tune_sw import KERNELS, device_inputs, run
 from localhgt_tpu_torch.tune_vote import time_ms
 sys.path.pop(0)
 for m in [m for m in sys.modules if m.startswith("localhgt_tpu_torch")]:
     del sys.modules[m]
 from localhgt_tpu_torch.ops import cuda_sw
+lib = cuda_sw._lib()
 dev = torch.device("cuda:0")
 out = {{}}
-for kernel, fn in (("K2", cuda_sw.sw_score), ("K1", cuda_sw.sw_align)):
+for kernel in ("K2", "K1"):
     for shape in KERNELS[kernel][2]:
         q, r = device_inputs(dev, *shape)
-        out[kernel + " " + str(shape)] = time_ms(lambda: fn(q, r), 20)
+        out[kernel + " " + str(shape)] = time_ms(
+            lambda: run(lib, kernel, q, r), 20)
 print(json.dumps({{"parent_ms": out}}))
 """
 
@@ -137,8 +149,10 @@ def build_variants() -> tuple:
         path = _build.build("sw", VARIANTS[name][0] + ("-Xptxas", "-v"))
         lib = ctypes.CDLL(str(path))
         for fn, _, _ in KERNELS.values():
-            getattr(lib, fn).argtypes = cuda_sw.SIGNATURE
-            getattr(lib, fn).restype = ctypes.c_int
+            for entry, sig in ((fn, cuda_sw.SIGNATURE),
+                               (fn + "_bands", cuda_sw.BANDS_SIGNATURE)):
+                getattr(lib, entry).argtypes = sig
+                getattr(lib, entry).restype = ctypes.c_int
         return lib, path
 
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
@@ -148,25 +162,27 @@ def build_variants() -> tuple:
 
 def run(lib, kernel: str, q, r):
     """One launch of `kernel` (K1 or K2) of a loaded build at the
-    parameters of its caller (align's, accbkp's)."""
+    parameters of its caller (align's, accbkp's), through the entry point
+    the wrapper takes at this width."""
     from localhgt_tpu_torch.ops import cuda_sw
 
+    sfx = "_bands" if r.shape[1] > cuda_sw.WIDE_MAX_N else ""
     if kernel == "K1":
         out = torch.empty((q.shape[0], 5), dtype=torch.int32,
                           device=q.device)
-        cuda_sw.launch(lib, "lht_sw_align", q, r, out, 1, -4, -6, -1)
+        cuda_sw.launch(lib, "lht_sw_align" + sfx, q, r, out, 1, -4, -6, -1)
     else:
         out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
-        cuda_sw.launch(lib, "lht_sw_score", q, r, out, 1, -2, -3, -1)
+        cuda_sw.launch(lib, "lht_sw_score" + sfx, q, r, out, 1, -2, -3, -1)
     return out
 
 
 def takes(name: str, kernel: str, N: int) -> bool:
     from localhgt_tpu_torch.ops.cuda_sw import NARROW_MAX_N
 
-    _, kernels, max_n, narrow, wide = VARIANTS[name]
-    return kernel in kernels.split() and (
-        wide if N > NARROW_MAX_N else narrow) and (
+    _, kernels, max_n, narrow, wider = VARIANTS[name]
+    serves = wider if N > NARROW_MAX_N else narrow
+    return kernel in kernels.split() and serves and (
         max_n is None or N <= max_n)
 
 
@@ -194,10 +210,12 @@ def real_shapes(dev) -> dict:
 # SASS opcodes that only the SM's 64-lane integer pipe issues
 INT_PIPE_ONLY = ("ISETP", "SEL", "VIMNMX", "VIMNMX3", "VIADDMNMX", "PLOP3",
                  "LOP3", "PRMT", "IMNMX", "SHF", "LEA")
-# K1's kernels as the package builds them for align's windows and for
-# validate_events' (mangled template arguments), with their columns a lane
-K1_KERNELS = {"sw_align_kernelILi32ELi8ELb0ELb0E": 8,
-              "sw_align_kernelILi32ELi16ELb1ELb0E": 16}
+# K1's kernels as the package builds them for align's windows, for
+# validate_events' and past 4,096 columns (mangled template arguments: G,
+# NPL, wide, guard, bands), with their columns a lane
+K1_KERNELS = {"sw_align_kernelILi32ELi8ELb0ELb0ELb0EE": 8,
+              "sw_align_kernelILi32ELi16ELb1ELb0ELb0EE": 16,
+              "sw_align_kernelILi32ELi16ELb1ELb0ELb1EE": 16}
 
 
 def loop_opcodes(sass: str, kernel: str) -> list:
@@ -234,6 +252,65 @@ def print_k1_loops(sass: str) -> None:
                   f"integer pipe alone ({only / npl:.2f} a cell if the loop "
                   f"is one step of {npl} columns): {json.dumps(ops)}",
                   flush=True)
+
+
+def print_band_resources(so: Path) -> None:
+    """Registers, stack and local (spilled) bytes of every band kernel of
+    a built library, as `cuobjdump -res-usage` reads them: the mangled
+    name's last template argument (kBands) is true."""
+    from localhgt_tpu_torch import _build
+
+    dump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    res = subprocess.run([str(dump), "-res-usage", str(so)],
+                         capture_output=True, text=True, check=True)
+    lines = res.stdout.splitlines()
+    band = re.compile(
+        r"(sw_(?:align|score)_kernelILi32ELi\d+ELb1ELb[01]ELb1E)")
+    for k, line in enumerate(lines):
+        m = band.search(line)
+        if m and k + 1 < len(lines):
+            print(f"[sass] {m.group(1)}: {lines[k + 1].strip()}", flush=True)
+
+
+def sass_functions(sass: str) -> dict:
+    """{kernel name without its file's anonymous-namespace hash: its
+    instructions} of a `cuobjdump -sass` text."""
+    out = {}
+    for body in sass.split("Function : ")[1:]:
+        name, _, rest = body.partition("\n")
+        name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", name.strip())
+        out[name] = re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*;)", rest)
+    return out
+
+
+def compare_sass(sass: str, parent: str) -> None:
+    """Print, for every kernel that both this build and the parent
+    checkout's build of csrc/sw.cu have, whether their SASS is the same."""
+    from localhgt_tpu_torch import _build
+
+    built = sorted(Path(parent).glob("build/localhgt_tpu_torch/sw-*.so"),
+                   key=lambda p: p.stat().st_mtime)
+    if not built:
+        print("[sass] the parent's build of sw.cu is not found", flush=True)
+        return
+    dump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    res = subprocess.run([str(dump), "-sass", str(built[-1])],
+                         capture_output=True, text=True, check=True)
+    mine, theirs = sass_functions(sass), sass_functions(res.stdout)
+    for name in sorted(set(mine) & set(theirs)):
+        a, b = mine[name], theirs[name]
+        diff = [k for k, (x, y) in enumerate(zip(a, b)) if x != y]
+        if a == b:
+            what = "the same as the parent's"
+        elif diff:
+            k = diff[0]
+            what = (f"{len(diff)} differ from the parent's ({len(b)}), the "
+                    f"first at {k}: {a[k]!r} against {b[k]!r}")
+        else:
+            what = f"not the same as the parent's ({len(b)})"
+        print(f"[sass] {name}: {len(a)} instructions, {what}", flush=True)
+    for name in sorted(set(mine) - set(theirs)):
+        print(f"[sass] {name}: not in the parent's build", flush=True)
 
 
 def parent_ms(parent: str) -> dict:
@@ -279,6 +356,7 @@ def main(argv=None) -> int:
                              capture_output=True, text=True, check=True)
         Path(args.sass).write_text(res.stdout)
         print_k1_loops(res.stdout)
+        print_band_resources(package_so)
 
     out = {"card": card_line(), "times_ms": {}}
     if args.parent:  # parent, variants, parent: in turns on one card
@@ -304,6 +382,8 @@ def main(argv=None) -> int:
                     print(f"[tune] {key} {name}: {ms:.4f} ms", flush=True)
     if args.parent:
         out["parent_again_ms"] = parent_ms(args.parent)
+        if args.sass:
+            compare_sass(Path(args.sass).read_text(), args.parent)
         for key, ms in out["parent_ms"].items():
             print(f"[tune] {key} parent: {ms:.4f} ms before the variants, "
                   f"{out['parent_again_ms'][key]:.4f} ms after", flush=True)

@@ -79,10 +79,18 @@ SCORE_SHAPES = {
     "n513": (33, 150, 513), "n768": (9, 300, 768), "n769": (9, 300, 769),
     "n1000": (48, 1000, 1000), "n1025": (5, 200, 1025),
     "n4096": (8, 256, 4096),
-    # wider than the block: bands of 4,096 columns, the last one column
-    # wide, or with more query rows than the ring holds
+    # wider than the block: a block a band in a cluster, balanced bands
+    # (the last one column short of its stripes at 4,097), with more query
+    # rows than the rings hold, one alignment, and past the cluster's 8
+    # bands (round-robin, the wrap edge)
     "n4097": (5, 200, 4097), "n8192": (3, 300, 8192),
     "n8193": (3, 100, 8193), "long_m_bands": (2, 700, 5000),
+    "n4097_one_alignment": (1, 200, 4097),
+    "past_the_cluster": (2, 120, 33000),
+    # three rounds of 8 blocks, the wrap buffer and the rings reused from
+    # round to round, more query rows than the ring between two blocks
+    # holds
+    "three_rounds_long_m": (2, 600, 70000),
     # more query rows than the ring between two stripes holds: it wraps,
     # and the left stripe waits for the right one
     "long_m_wide": (6, 1500, 600),
@@ -169,10 +177,18 @@ ALIGN_SHAPES = {
     "n769": (5, 200, 769), "n1000": (12, 1000, 1000),
     "n1024": (4, 300, 1024), "n1025": (4, 300, 1025),
     "n4096": (3, 256, 4096),
-    # wider than the block: bands of 4,096 columns (8 stripes), the last
-    # one column wide, or with more query rows than the ring holds
+    # wider than the block: a block a band in a cluster, balanced bands of
+    # up to 8 stripes (N = 4,097: 2,560 + 1,537 columns), with more query
+    # rows than the rings hold, one alignment, and past the cluster's 8
+    # bands (round-robin, the wrap edge)
     "n4097": (5, 200, 4097), "n8192": (3, 300, 8192),
     "n8193": (3, 100, 8193), "long_m_bands": (2, 700, 5000),
+    "n4097_one_alignment": (1, 200, 4097),
+    "past_the_cluster": (2, 120, 33000),
+    # three rounds of 8 blocks, the wrap buffer and the rings reused from
+    # round to round, more query rows than the ring between two blocks
+    # holds
+    "three_rounds_long_m": (2, 600, 70000),
     # more query rows than the ring between two stripes holds: it wraps,
     # and the left stripe waits for the right one
     "long_m_wide": (6, 1500, 600),

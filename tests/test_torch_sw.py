@@ -2,8 +2,10 @@
 (sw_score) against the Pallas kernels in interpret mode, the lax.scan
 formulation and the O(MN) numpy oracle; and the Gotoh form and the
 wavefront schedules of the CUDA kernels K1 and K2 (narrow groups, K1's
-wide stripes with a lag and a ring, and its sweep of bands joined by an
-edge buffer), written out in numpy, against them.
+wide stripes with a lag and a ring, and both kernels' bands running
+together in a cluster, joined by rings between blocks and past the
+cluster's reach by a wrap buffer), written out in numpy, against them;
+and the tie rule at free vertical gaps, where the oracle and Pallas part.
 Comparisons are exact."""
 
 import hypothesis
@@ -137,7 +139,7 @@ def test_tiled_entry_points_match_reference():
                                    (4, 1 << 19, cuda_sw.WIDE_MAX_N)])
 def test_wrappers_reject_windows_above_the_kernels_limits(shape):
     """Where i*(N+1)+j overflows int32 (the origin register, the one limit
-    of the kernels' width: wider references sweep bands), both wrappers
+    of the kernels' width: wider references run in bands), both wrappers
     raise on every device (the plain version is not a fallback)."""
     B, M, N = shape
     q = torch.zeros((B, M), dtype=torch.uint8)
@@ -372,6 +374,7 @@ class _Lanes:
         self.bH, self.bPos, self.bO = z(lanes), z(lanes), z(lanes)
         self.left = [z(lanes) for _ in range(4)]  # last H, O; E out, origin
         self.prev = [z(lanes), z(lanes)]          # H, O of the row above
+        self.fill = (0, 0, NEG + params[2], 0)
 
     def row(self, l, i, hd, od, e, eo):
         """Lane l on query row i (align_row in csrc/sw.cu)."""
@@ -409,22 +412,24 @@ class _Lanes:
     def step(self, t, lanes, edge=None):
         """Step t of the G lanes `lanes` (a slice): lane l on row
         t - (l - lanes.start). The shuffles take what the lane to the left
-        left one step earlier; the group's first lane takes 0 and E's
-        start, or `edge(i)` (the ring) where it is given."""
+        left one step earlier; the group's first lane takes `fill` (0 and
+        E's start), or `edge(i)` (the ring) where it is given. The first
+        len(prev) values a lane leaves are the next row's diagonal."""
         G = lanes.stop - lanes.start
-        fill = (0, 0, NEG + self.params[2], 0)
         got = [np.concatenate([np.full((len(x), 1), f), x[:, lanes][:, :-1]],
-                              1) for x, f in zip(self.left, fill)]
+                              1) for x, f in zip(self.left, self.fill)]
         if edge is not None and t < self.M:
             for x, v in zip(got, edge(t)):
                 x[:, 0] = v
+        n = len(self.prev)
         for lg in range(G):
             i = t - lg
             if 0 <= i < self.M:
                 l = lanes.start + lg
-                self.row(l, i, self.prev[0][:, l], self.prev[1][:, l],
-                         got[2][:, lg], got[3][:, lg])
-        self.prev[0][:, lanes], self.prev[1][:, lanes] = got[0], got[1]
+                self.row(l, i, *(p[:, l] for p in self.prev),
+                         *(x[:, lg] for x in got[n:]))
+        for p, x in zip(self.prev, got):
+            p[:, lanes] = x
 
     def best(self):
         """Over the lanes: max H, then the smallest packed index."""
@@ -462,11 +467,9 @@ def _stripes_align_np(q, r, NPL, lag, ring, params, guard=False):
     return lanes.best()
 
 
-def _run_stripes(lanes, S, lag, ring, edge_in=None, edge_out=None):
+def _run_stripes(lanes, S, lag, ring):
     """The S stripes of `lanes`, stripe w `lag` steps behind stripe w-1,
-    the edge between two through a ring of `ring` rows. edge_in(i): row
-    i's left edge of the first stripe (0 and E's start where it is None);
-    edge_out(i, edge): the last stripe's outgoing edge of row i."""
+    the edge between two through a ring of `ring` rows."""
     M = lanes.M
     held = np.full((S, ring), -1)     # the row each slot holds
     read = np.full((S, ring), -1)     # the row last read from it
@@ -477,7 +480,7 @@ def _run_stripes(lanes, S, lag, ring, edge_in=None, edge_out=None):
             assert held[w - 1, i % ring] == i, ("not yet written", w, i)
             read[w - 1, i % ring] = i
             return slots[w - 1, i % ring]
-        return take if w else edge_in
+        return take if w else None
 
     T = M + 31
     for tau in range(T + (S - 1) * lag):
@@ -487,53 +490,198 @@ def _run_stripes(lanes, S, lag, ring, edge_in=None, edge_out=None):
                 continue
             lanes.step(t, slice(32 * w, 32 * w + 32), edge(w))
             i = t - 31                # the stripe's last lane wrote row i
-            if not 0 <= i < M:
+            if not 0 <= i < M or w + 1 == S:
                 continue
-            out = [x[:, 32 * w + 31] for x in lanes.left]
-            if w + 1 < S:
-                k = i % ring
-                assert held[w, k] < 0 or read[w, k] == held[w, k], (w, i)
-                held[w, k] = i
-                slots[w, k] = out
-            elif edge_out is not None:
-                edge_out(i, out)
+            k = i % ring
+            assert held[w, k] < 0 or read[w, k] == held[w, k], (w, i)
+            held[w, k] = i
+            slots[w, k] = [x[:, 32 * w + 31] for x in lanes.left]
 
 
-def _bands_align_np(q, r, NPL, S, lag, ring, params, guard=False):
-    """K1's sweep of a reference wider than its block: bands of S stripes
-    (32 lanes of NPL columns each), one after another. The last stripe of
-    a band writes its outgoing edge of every row into ONE buffer of M rows,
-    which the first stripe of the next band reads in place of column 0's
-    boundary: a row is overwritten only after that stripe read it, and read
-    only after the band before wrote it. A last band narrower than S
-    stripes runs only the stripes it has. Each lane's best of a band joins
-    the bests of the bands before, lexicographically."""
+class _ScoreLanes(_Lanes):
+    """K2's lanes over a batch: H and F of every column, each lane's best
+    H, and what each lane left for the lane to its right (last H, outgoing
+    E)."""
+
+    def __init__(self, q, r, lanes, NPL, params, guard, col0=0):
+        super().__init__(q, r, lanes, NPL, params, guard, col0)
+        B = r.shape[0]
+        self.best_h = np.zeros((B, lanes), np.int64)
+        self.left = [np.zeros((B, lanes), np.int64) for _ in range(2)]
+        self.prev = [np.zeros((B, lanes), np.int64)]  # H of the row above
+        self.fill = (0, NEG + params[2])
+
+    def row(self, l, i, hd, e):
+        """Lane l on query row i (score_row in csrc/sw.cu)."""
+        match, mismatch, gap_open, gap_ext = self.params
+        goe = gap_open + gap_ext
+        H, F = self.H, self.F
+        for c in range(self.NPL):
+            j = l * self.NPL + c
+            sub = np.where(self.rc[:, j] == self.qc[:, i], match, mismatch)
+            h1 = np.maximum(np.maximum(hd + sub, F[:, j]), 0)
+            hd = H[:, j].copy()
+            h = np.maximum(h1, e)
+            e = np.maximum(e + gap_ext, h1 + goe)
+            F[:, j] = np.maximum(F[:, j] + gap_ext, h + goe)
+            H[:, j] = h
+            if not (self.guard and self.col0 + j >= self.N):
+                self.best_h[:, l] = np.maximum(self.best_h[:, l], h)
+        j = (l + 1) * self.NPL - 1
+        self.left[0][:, l], self.left[1][:, l] = H[:, j], e
+
+
+def _cluster_bands(N, NPL, S):
+    """(warps a block, columns a band, bands): ceil(N / (S stripes)) bands,
+    balanced, each rounded up to whole stripes of 32 * NPL columns
+    (band_shape in csrc/sw.cu, where S stripes make 4,096 columns)."""
+    stripe = 32 * NPL
+    nb = -(-N // (S * stripe))
+    warps = -(-(-(-N // nb)) // stripe)
+    return warps, warps * stripe, -(-N // (warps * stripe))
+
+
+def _run_cluster(make, M, N, NPL, S, lag, ring, cluster, lagb, band_ring):
+    """The band kernels' schedule: one block a band, min(bands, cluster)
+    blocks, block r running the bands r, r + cluster, ... one after
+    another (round k its k-th). Within a band stripe w runs `lag` steps
+    behind stripe w-1, its left edge through a ring of `ring` rows; a band
+    starts `lagb` steps after the last stripe of the band to its left, and
+    not before its block's band before has finished. The edge between two
+    bands goes through a ring of `band_ring` rows in the right block's
+    memory, the rows of every round one stream (round k's row i is k*M +
+    i); from the cluster's last block to its first (past `cluster` bands)
+    through one buffer of M rows. A slot is read only when it holds its
+    row and overwritten only after it was read. make(col0, stripes): the
+    lanes of a band. Returns [(block, lanes) of every band]."""
+    warps, W, nbands = _cluster_bands(N, NPL, S)
+    cs = min(nbands, cluster)
+    T = M + 31
+    stripes = [min(warps, -(-(N - g * W) // (32 * NPL)))
+               for g in range(nbands)]
+    lanes = [make(g * W, stripes[g]) for g in range(nbands)]
+    start = []
+    for g in range(nbands):
+        s = 0 if g == 0 else start[g - 1] + (stripes[g - 1] - 1) * lag + lagb
+        if g >= cs:  # the block's band before is done
+            s = max(s, start[g - cs] + (stripes[g - cs] - 1) * lag + T)
+        start.append(s)
+    nv = len(lanes[0].left)
+    B = lanes[0].H.shape[0]
+    # the rings between stripes of a band, between blocks, and the wrap:
+    # the row (stream position) each slot holds, and the last one read
+    held = [np.full((warps, ring), -1) for _ in range(nbands)]
+    read = [np.full((warps, ring), -1) for _ in range(nbands)]
+    slots = [np.zeros((warps, ring, nv, B), np.int64) for _ in range(nbands)]
+    bheld = np.full((cs, band_ring), -1)
+    bread = np.full((cs, band_ring), -1)
+    bslots = np.zeros((cs, band_ring, nv, B), np.int64)
+    wrap = np.zeros((M, nv, B), np.int64)
+    wwritten = np.full(M, -1)  # the band that wrote each row last
+    wread = np.full(M, -1)     # the band that read it last
+
+    def edge_in(g, w):
+        if w > 0:
+            def take(i):
+                assert held[g][w - 1, i % ring] == i, ("stripe", g, w, i)
+                read[g][w - 1, i % ring] = i
+                return slots[g][w - 1, i % ring]
+            return take
+        if g == 0:
+            return None
+        r, k = g % cs, g // cs
+        if r > 0:
+            def take(i):
+                pos = k * M + i
+                assert bheld[r, pos % band_ring] == pos, ("band", g, i)
+                bread[r, pos % band_ring] = pos
+                return bslots[r, pos % band_ring]
+            return take
+
+        def take(i):
+            assert wwritten[i] == g - 1, ("wrap not yet written", g, i)
+            wread[i] = g
+            return wrap[i]
+        return take
+
+    def edge_out(g, w, i, out):
+        if w + 1 < stripes[g]:
+            k = i % ring
+            assert held[g][w, k] < 0 or read[g][w, k] == held[g][w, k]
+            held[g][w, k], slots[g][w, k] = i, out
+        elif g + 1 < nbands:
+            r, k = g % cs, g // cs
+            if r + 1 < cs:
+                pos = k * M + i
+                slot = pos % band_ring
+                assert (bheld[r + 1, slot] < 0
+                        or bread[r + 1, slot] == bheld[r + 1, slot]), (
+                    "band ring full", g, i)
+                bheld[r + 1, slot], bslots[r + 1, slot] = pos, out
+            else:
+                assert wwritten[i] < 0 or wread[i] == wwritten[i] + 1, (
+                    "wrap not yet read", g, i)
+                wrap[i], wwritten[i] = out, g
+
+    end = max(start[g] + (stripes[g] - 1) * lag + T for g in range(nbands))
+    for tau in range(end):
+        # right to left: a row written at step tau is read at tau + 1 on
+        for g in reversed(range(nbands)):
+            for w in reversed(range(stripes[g])):
+                t = tau - start[g] - w * lag
+                if not 0 <= t < T:
+                    continue
+                lanes[g].step(t, slice(32 * w, 32 * w + 32), edge_in(g, w))
+                i = t - 31  # the stripe's last lane wrote row i
+                if 0 <= i < M:
+                    edge_out(g, w, i,
+                             [x[:, 32 * w + 31] for x in lanes[g].left])
+    return [(g % cs, lanes[g]) for g in range(nbands)]
+
+
+def _fold_align(a, b):
+    """The better of two (H, packed index, origin) bests, lane by lane:
+    max H, then the smallest index (take_better in csrc/sw.cu)."""
+    take = (b[0] > a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+    return tuple(np.where(take, y, x) for x, y in zip(a, b))
+
+
+def _cluster_align_np(q, r, NPL, S, lag, ring, cluster, lagb, band_ring,
+                      params, guard=False):
+    """K1 on the band kernels' schedule (_run_cluster). A lane keeps its
+    best of its block's bands (folded round by round), the block folds its
+    lanes, and block 0 folds the blocks in band order."""
     B, M = q.shape
     N = r.shape[1]
-    width = 32 * NPL * S
-    buf = np.zeros((M, 4, B), np.int64)
-    written = np.full(M, -1)   # the band that wrote each row last
-    read = np.full(M, -1)      # the band that read it last
-    bests = []
-    for band, col0 in enumerate(range(0, N, width)):
-        stripes = min(S, -(-(N - col0) // (32 * NPL)))
-        lanes = _Lanes(q, r, 32 * stripes, NPL, params, guard, col0=col0)
+    bands = _run_cluster(
+        lambda col0, n: _Lanes(q, r, 32 * n, NPL, params, guard, col0),
+        M, N, NPL, S, lag, ring, cluster, lagb, band_ring)
+    warps = _cluster_bands(N, NPL, S)[0]
+    zero = tuple(np.zeros((B, 32 * warps), np.int64) for _ in range(3))
+    per_block = {}
+    for blk, lanes in bands:
+        n = lanes.bH.shape[1]
+        mine = tuple(np.pad(x, ((0, 0), (0, 32 * warps - n)))
+                     for x in (lanes.bH, lanes.bPos, lanes.bO))
+        per_block[blk] = _fold_align(per_block.get(blk, zero), mine)
+    best = tuple(np.zeros(B, np.int64) for _ in range(3))
+    for blk in sorted(per_block):
+        bH, bPos, bO = per_block[blk]
+        for lane in range(bH.shape[1]):
+            best = _fold_align(best, (bH[:, lane], bPos[:, lane],
+                                      bO[:, lane]))
+    return _align_fields(*best, N)
 
-        def edge_in(i, band=band):
-            assert written[i] == band - 1, ("edge not yet written", band, i)
-            read[i] = band
-            return buf[i]
 
-        def edge_out(i, edge, band=band):
-            assert band == 0 or read[i] == band, ("edge not yet read", band, i)
-            buf[i] = edge
-            written[i] = band
-
-        _run_stripes(lanes, stripes, lag, ring,
-                     edge_in if band else None,
-                     edge_out if col0 + width < N else None)
-        bests.append((lanes.bH, lanes.bPos, lanes.bO))
-    return _best_of(*(np.concatenate(x, 1) for x in zip(*bests)), N)
+def _cluster_score_np(q, r, NPL, S, lag, ring, cluster, lagb, band_ring,
+                      params, guard=False):
+    """K2 on the band kernels' schedule: the maximum of every lane's best
+    over every band."""
+    bands = _run_cluster(
+        lambda col0, n: _ScoreLanes(q, r, 32 * n, NPL, params, guard, col0),
+        q.shape[1], r.shape[1], NPL, S, lag, ring, cluster, lagb, band_ring)
+    return np.max([lanes.best_h.max(1) for _, lanes in bands],
+                  0).astype(np.int32)
 
 
 def _with_code4(q, r):
@@ -598,31 +746,95 @@ def test_sw_align_wide_stripes_match_plain(stripes):
         np.testing.assert_array_equal(got, want, err_msg=name)
 
 
-@pytest.mark.parametrize("bands", [(1, 3, 32, 8), (1, 3, 40, 64),
-                                   (2, 2, 33, 16)])
-def test_sw_align_bands_match_pallas(bands):
-    """(columns a lane, stripes a band, lag, ring rows): K1's sweep of a
-    reference wider than its block, with a band of 96 or 128 columns so
-    that N = 200 crosses three bands (the last of 8 columns, one stripe) or
-    two, equals the Pallas kernel in interpret mode on tie-heavy inputs,
-    start coordinates included, and K2's Pallas score; the guarded
-    parameters equal the plain version."""
-    NPL, S, lag, ring = bands
+# (columns a lane, stripes of the widest band, lag between stripes, their
+# ring's rows, cluster size, lag between bands, the band ring's rows); N =
+# 200 makes bands of 96 (the last of 8 columns, one stripe) or 128
+# columns, M = 40 rows wrap every band ring; a cluster of 2 takes bands
+# round-robin and wraps the edge from its last block to its first
+CLUSTER_CASES = {"three_bands": (1, 3, 32, 8, 8, 32, 16),
+                 "long_lags": (1, 3, 40, 64, 8, 40, 64),
+                 "two_bands": (2, 2, 33, 16, 8, 33, 8),
+                 "round_robin": (1, 2, 32, 8, 2, 36, 8),
+                 "seven_bands_two_blocks": (1, 1, 32, 8, 2, 32, 4)}
+
+
+@pytest.mark.parametrize("case", list(CLUSTER_CASES))
+def test_sw_align_bands_match_pallas(case):
+    """K1's band kernels on their schedule (one block a band, the bands of
+    an alignment in a cluster, running together; balanced bands; rings
+    between stripes and between blocks that wrap; past the cluster's reach
+    bands round-robin and the wrap edge) equal the Pallas kernel in
+    interpret mode on tie-heavy inputs, start coordinates included; the
+    guarded parameters equal the plain version."""
+    shape = CLUSTER_CASES[case]
     B, M, N = 6, 40, 200
-    q, r = _with_code4(*_tie_heavy(N + S + lag, B, M, N))
+    q, r = _with_code4(*_tie_heavy(N + sum(shape), B, M, N))
     for name, prm in {**ALIGN_PARAMS, **GUARDED_PARAMS}.items():
         kw = dict(zip(("match", "mismatch", "gap_open", "gap_ext"), prm))
-        got = _bands_align_np(q, r, NPL, S, lag, ring, prm,
-                              guard=name in GUARDED_PARAMS)
+        got = _cluster_align_np(q, r, *shape, prm,
+                                guard=name in GUARDED_PARAMS)
+        want = (_plain_align(q, r, **kw) if name in GUARDED_PARAMS
+                else _pallas_align(q, r, **kw))
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(CLUSTER_CASES))
+def test_sw_score_bands_match_pallas(case):
+    """K2's band kernels on the same schedule equal the Pallas score
+    kernel in interpret mode on tie-heavy inputs; the guarded parameters
+    equal the plain version."""
+    shape = CLUSTER_CASES[case]
+    B, M, N = 6, 40, 200
+    q, r = _with_code4(*_tie_heavy(N + sum(shape) + 1, B, M, N))
+    for name, prm in {**ALIGN_PARAMS, **GUARDED_PARAMS}.items():
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_ext"), prm))
+        got = _cluster_score_np(q, r, *shape, prm,
+                                guard=name in GUARDED_PARAMS)
         if name in GUARDED_PARAMS:
-            want = _plain_align(q, r, **kw)
+            want = cuda_sw.sw_score_plain(torch.from_numpy(q),
+                                          torch.from_numpy(r), **kw).numpy()
         else:
-            want = _pallas_align(q, r, **kw)
-            score = np.asarray(pallas_sw.sw_score_pallas(
+            want = np.asarray(pallas_sw.sw_score_pallas(
                 jnp.asarray(q), jnp.asarray(r), tile=B, interpret=True,
                 **kw))
-            np.testing.assert_array_equal(got[:, 0], score, err_msg=name)
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_balanced_bands_match_the_kernels_band_shape():
+    """The balanced bands of csrc/sw.cu's band_shape at K1's stripes of
+    512 columns (8 to a block of 4,096): N = 4,097 is two bands of 2,560
+    and 1,537 columns, not 4,096 + 1; 6,000 two of 3,072; 8,192 two of
+    4,096; 33,000 and 36,865 are nine and ten bands of 4,096, past a
+    cluster's 8."""
+    assert _cluster_bands(4097, 16, 8) == (5, 2560, 2)
+    assert _cluster_bands(6000, 16, 8) == (6, 3072, 2)
+    assert _cluster_bands(8192, 16, 8) == (8, 4096, 2)
+    assert _cluster_bands(33000, 16, 8) == (8, 4096, 9)
+    assert _cluster_bands(36865, 16, 8) == (8, 4096, 10)
+
+
+def test_sw_align_free_gap_ties_follow_pallas_not_the_oracle():
+    """At gap extend 0 a vertical gap costs the same whatever its length,
+    so gaps opened in different rows of a column tie. The O(MN) oracle
+    takes the nearest row among them (its first candidate is g = 1);
+    Pallas keeps the earliest (Mf keeps the older value), and so do
+    lax.scan and the port (ROADMAP F1). The draw that showed it: B=1, M=7,
+    N=3, match 1, mismatch 0, open 0, ext 0, alphabet 5, seed 60656; q[2]
+    and q[3] both match r[1], q[5] matches r[2], a free gap between."""
+    rng = np.random.default_rng(60656)
+    q = rng.integers(0, 5, (1, 7)).astype(np.uint8)
+    r = rng.integers(0, 5, (1, 3)).astype(np.uint8)
+    kw = dict(match=1, mismatch=0, gap_open=0, gap_ext=0)
+    want = [[2, 2, 5, 1, 2]]  # score, qstart, qend, rstart, rend
+    np.testing.assert_array_equal(_plain_align(q, r, **kw), want)
+    np.testing.assert_array_equal(_pallas_align(q, r, **kw), want)
+    np.testing.assert_array_equal(
+        _gotoh_align_np(q, r, **kw), want)
+    lax = jax_sw.sw_align(jnp.asarray(q), jnp.asarray(r), **kw)
+    assert [int(lax[k][0]) for k in ("score", "qstart", "qend", "rstart",
+                                     "rend")] == want[0]
+    # the oracle: the same score and ends, the gap opened one row later
+    assert jax_sw.sw_align_np(q[0], r[0], **kw) == (2, 3, 5, 1, 2)
 
 
 @hypothesis.settings(max_examples=30, deadline=None)
@@ -633,6 +845,11 @@ def test_sw_align_bands_match_pallas(bands):
     alpha=st.sampled_from([2, 5]), seed=st.integers(0, 1 << 16))
 def test_sw_align_gotoh_form_matches_plain_on_small_inputs(
         B, M, N, match, mismatch, gap_open, gap_ext, alpha, seed):
+    """The Gotoh form and the narrow schedule equal the plain version;
+    score, qend and rend equal the O(MN) oracle in every draw, and the
+    starts too where gap extend is below 0. At gap extend 0 the oracle
+    breaks ties among vertical gaps the other way (see the test above), so
+    there the starts are held to Pallas in interpret mode."""
     rng = np.random.default_rng(seed)
     q = rng.integers(0, alpha, (B, M)).astype(np.uint8)
     r = rng.integers(0, alpha, (B, N)).astype(np.uint8)
@@ -643,4 +860,10 @@ def test_sw_align_gotoh_form_matches_plain_on_small_inputs(
     np.testing.assert_array_equal(_wavefront_align_np(q, r, 4, 5, prm),
                                   plain)
     for b in range(B):
-        assert tuple(plain[b]) == jax_sw.sw_align_np(q[b], r[b], **kw), b
+        oracle = jax_sw.sw_align_np(q[b], r[b], **kw)
+        if gap_ext < 0:
+            assert tuple(plain[b]) == oracle, b
+        else:
+            assert tuple(plain[b, [0, 2, 4]]) == oracle[0::2], b
+    if gap_ext == 0:
+        np.testing.assert_array_equal(_pallas_align(q, r, **kw), plain)
