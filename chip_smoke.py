@@ -5,8 +5,8 @@
 
 Phases, each fatal on failure:
   1. environment: card name and power limit (nvidia-smi), torch, CUDA, nvcc;
-  2. build kernels K1/K2 (csrc/sw.cu) and K3 (csrc/vote.cu), one nvcc
-     each, in parallel;
+  2. build kernels K1/K2 (csrc/sw.cu), K3 (csrc/vote.cu) and K4/K5
+     (csrc/kmer.cu), one nvcc each, in parallel;
   3. each kernel against its plain torch version on the card, exact integer
      equality, both timed with CUDA events and printed beside the kernel's
      bound (the larger of its bytes over 3.35 TB/s and its integer
@@ -21,12 +21,17 @@ Phases, each fatal on failure:
      M=600, N=70,000: 18 bands in three rounds, with more query rows than
      the ring between two blocks holds; random and tie-heavy inputs),
      K3 also at the main path's candidate density, at a ragged B, at a P
-     that is no multiple of 4 and at the sharded vote's B;
+     that is no multiple of 4 and at the sharded vote's B; K4 (the
+     canonical hashes, bit-equal at every position) at the count, scan,
+     peak-set and vote shapes, K4's count epilogue and K5 (the run-capped
+     table update, on a k=32 table) on a 65,536-read batch at depth 5;
   4. simulate the `big` fixture (100 genomes x 1 Mbp, 50 HGTs, depth 5,
      seed 42) in a temporary directory;
   5. `bkp` at k=32 through the port's CLI entry on the card: every kernel
-     must launch, recall >= 0.90 and FDR <= 0.05 (+-50 bp); logs the
-     (B, N) of K2's launches and the (B, M, N) of K1's;
+     must launch, K4 in the scan, peak-set and vote stages, K4's count
+     epilogue and K5 in the count stage; recall >= 0.90 and FDR <= 0.05
+     (+-50 bp); logs the (B, N) of K2's launches and the (B, M, N) of
+     K1's;
   6. `event` on the output folder through the port's CLI, then the
      multi-device path on one card: `bkp --multi_chip on` through the CLI
      (a mesh of one shard) and `detect_breakpoint` over a mesh of four
@@ -42,7 +47,8 @@ Phases, each fatal on failure:
      reads cut from the truth junctions (1% substitutions) plus as many
      from random reference windows: >= 90% validated, and K1's
      wide-reference variant launches;
- 10. `kmer_stats` at k=24 on one mate of `big`;
+ 10. `kmer_stats` at k=24 on one mate of `big`: K4's count epilogue and
+     K5 launch;
  11. `tools.mapq_calibration.run` on the card: its report equals the JAX
      package's (reports/mapq_calibration.json) key for key, and K1
      launches;
@@ -150,6 +156,20 @@ K1_OPS_PER_CELL, K2_OPS_PER_CELL = 20, 5.5
 # non-zero candidate and 3G (compare, increment or victim search and
 # insert) per position that has one
 K3_OPS_PER_CANDIDATE, K3_OPS_PER_HIT = 16, 24
+# K4, a window start: 4 funnel shifts and 4 shifts for the windows, the
+# valid compare, 3 bit reversals with their shifts and 2 complements = 17,
+# and per hash function 3 ANDs and 2 ORs a strand and the minimum = 11
+# (the ballots are 16 a warp, half an instruction a lane)
+K4_OPS_PER_START, K4_OPS_PER_HASH = 17, 11
+KMER_SOURCE = "localhgt_tpu_torch/csrc/kmer.cu"
+# K4 and K5 replace no Pallas kernel: the jitted XLA count step and the
+# hashing XLA fuses into the JAX package's scan, peak-set and vote
+K4_XLA = "localhgt_tpu/ops/encode.py:91 (XLA, no Pallas kernel)"
+K4_COUNT_XLA = "localhgt_tpu/ops/count.py:223-234 (XLA, no Pallas kernel)"
+K5_XLA = "localhgt_tpu/ops/count.py:242-248 (XLA, no Pallas kernel)"
+SECTOR_BYTES = 32  # the unit in which a byte of the table is read and written
+K4_STAGES = ("scan", "peakset", "vote")  # bkp's callers of K4
+K4_COUNT = ("count_keys", "run_capped_update")  # the count step's kernels
 
 
 def log(msg: str) -> None:
@@ -190,6 +210,14 @@ def check_kernels(dev) -> list:
     ops_per_s = int32_ops_per_s()
     out = []
 
+    def max_err(g, w) -> int:
+        """Largest |g - w|, read only where the two differ (a k=32 table
+        is 4 GiB)."""
+        diff = g != w
+        if not bool(diff.any()):
+            return 0
+        return int((g[diff].long() - w[diff].long()).abs().max())
+
     def compare(name, replaces, kern, plain, reps, nbytes, ops,
                 source=SOURCE):
         """nbytes: every input read once and every output written once;
@@ -199,8 +227,7 @@ def check_kernels(dev) -> list:
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
-                  for g, w in zip(got, want))
+        err = max(max_err(g, w) for g, w in zip(got, want))
         ms = tune_vote.time_ms(kern, reps)
         plain_ms = tune_vote.time_ms(plain, 2)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -295,12 +322,110 @@ def check_kernels(dev) -> list:
         out += sw_both(B, M, N, False, f"_bands_n{N}", True, True)
         out += sw_both(B, M, N, True, f"_bands_n{N}_tie_heavy", True, True)
     log(f"[kernels] band rows in {time.perf_counter() - t:.1f} s")
+    out += kmer_rows(dev, rng, compare)
+    return out
+
+
+def depth5_reads(rng, B: int, L: int, genome_len: int) -> np.ndarray:
+    """codes uint8 [B, L]: 150-bp reads at random starts and strands of a
+    random genome of `genome_len` bases, padded with N to L, so that a
+    k-mer recurs about B * 150 / genome_len times, as at `big`'s depth 5
+    (1% substitutions)."""
+    from localhgt_tpu_torch.ops import coder
+
+    genome = rng.integers(0, 4, genome_len).astype(np.uint8)
+    starts = rng.integers(0, genome_len - 150, B)
+    reads = genome[starts[:, None] + np.arange(150)[None, :]]
+    rc = rng.random(B) < 0.5
+    reads[rc] = coder.COMPLEMENT[reads[rc]][:, ::-1]
+    sub = rng.random(reads.shape) < 0.01
+    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    codes = np.full((B, L), 4, np.uint8)
+    codes[:, :150] = reads
+    return codes
+
+
+def kmer_rows(dev, rng, compare) -> list:
+    """Phase 3's K4 and K5 rows at k=32 and three hash functions. K4 at
+    the count step's batch (65,536 reads padded to 192: the record), the
+    scan's 8 chunks of 2^20, the peak set's chunk of 2^22 + k and the
+    vote's 32,768-pair mate batch; its count epilogue and K5 on a count
+    batch of depth-5 reads, K5 into a k=32 table (4 GiB) that already
+    holds that batch's counts."""
+    import torch
+
+    from localhgt_tpu_torch.ops import count, cuda_kmer, encode
+
+    k, C, cap, kw = KMER, 3, 3, 128
+    masks, _ = encode.hasher_for(k, C, seed=1)
+    out = []
+
+    def hashes(name, shape, record):
+        codes = rng.integers(0, 4, shape).astype(np.uint8)
+        codes[rng.random(shape) < 0.01] = 4
+        codes = torch.from_numpy(codes).to(dev)
+        n = codes.numel()
+        rec = compare(
+            name, K4_XLA,
+            lambda: cuda_kmer.canonical_hashes(codes, masks, k),
+            lambda: encode.canonical_hashes_plain(codes, masks, k), 10,
+            n + n * (8 * C + 1), n * (K4_OPS_PER_START + C * K4_OPS_PER_HASH),
+            source=KMER_SOURCE)
+        if record:
+            out.append(rec)
+
+    hashes("canonical_hashes", (65_536, 192), True)
+    hashes("canonical_hashes_scan", (8, 1 << 20), False)
+    hashes("canonical_hashes_peakset", (1, (1 << 22) + k), False)
+    hashes("canonical_hashes_vote", (32_768, 192), False)
+
+    B, L = 65_536, 192
+    codes = torch.from_numpy(depth5_reads(rng, B, L, 2_000_000)).to(dev)
+    lengths = torch.full((B,), 150, dtype=torch.int32, device=dev)
+    accept = torch.from_numpy(rng.random(B) < 0.98).to(dev)
+    # the epilogue's windows start below kw and need codes 0..kw + k - 2
+    W = kw if 0 < kw < L else L
+    out.append(compare(
+        "count_keys", K4_COUNT_XLA,
+        lambda: cuda_kmer.count_keys(codes, lengths, accept, masks, k, kw),
+        lambda: count.count_keys_plain(codes, lengths, accept, masks, k, kw),
+        10, B * min(L, W + k - 1) + 5 * B + 4 * C * B * W,
+        B * kw * (K4_OPS_PER_START + C * K4_OPS_PER_HASH),
+        source=KMER_SOURCE))
+
+    s = torch.sort(cuda_kmer.count_keys(codes, lengths, accept, masks, k,
+                                        kw), dim=1).values[0].contiguous()
+    s64 = s.to(torch.int64) & count.SENTINEL
+    starts = torch.ones_like(s64, dtype=torch.bool)
+    starts[1:] = s64[1:] != s64[:-1]
+    runs = s64[starts & (s64 != count.SENTINEL)]
+    sectors = int(torch.unique(runs // SECTOR_BYTES).numel())
+    log(f"[kernels] K5 row: {s.numel()} keys, {runs.numel()} runs, "
+        f"{sectors} table sectors")
+    t_kern = count.make_table(k, dev)
+    t_plain = count.make_table(k, dev)
+    count.run_capped_update_plain(t_kern, s, cap)
+    t_plain.copy_(t_kern)
+
+    def kern():
+        cuda_kmer.run_capped_update(t_kern, s, cap)
+        return t_kern
+
+    def plain():
+        count.run_capped_update_plain(t_plain, s, cap)
+        return t_plain
+
+    out.append(compare(
+        "run_capped_update", K5_XLA, kern, plain, 10,
+        4 * s.numel() + 2 * SECTOR_BYTES * sectors, 0, source=KMER_SOURCE))
+    del t_kern, t_plain
+    torch.cuda.empty_cache()
     return out
 
 
 def counters():
     """{record name: (wrapper, counter attribute)} of every kernel."""
-    from localhgt_tpu_torch.ops import cuda_sw, cuda_vote
+    from localhgt_tpu_torch.ops import cuda_kmer, cuda_sw, cuda_vote
 
     return {"sw_align": (cuda_sw.sw_align, "launches"),
             "sw_score": (cuda_sw.sw_score, "launches"),
@@ -308,7 +433,10 @@ def counters():
             "sw_align_wide": (cuda_sw.sw_align, "wide_launches"),
             "sw_score_wide": (cuda_sw.sw_score, "wide_launches"),
             "sw_align_bands": (cuda_sw.sw_align, "band_launches"),
-            "sw_score_bands": (cuda_sw.sw_score, "band_launches")}
+            "sw_score_bands": (cuda_sw.sw_score, "band_launches"),
+            "canonical_hashes": (cuda_kmer.canonical_hashes, "launches"),
+            "count_keys": (cuda_kmer.count_keys, "launches"),
+            "run_capped_update": (cuda_kmer.run_capped_update, "launches")}
 
 
 def counter_of(record: str) -> str:
@@ -323,10 +451,11 @@ def drive(dev, fn):
     (fn's result, {record name: launches}, wall seconds)."""
     import torch
 
-    from localhgt_tpu_torch.ops import cuda_sw
+    from localhgt_tpu_torch.ops import cuda_kmer, cuda_sw
 
     for w, attr in counters().values():
         setattr(w, attr, 0)
+    cuda_kmer.canonical_hashes.stages.clear()
     cuda_sw.sw_align.shapes.clear()
     cuda_sw.sw_score.shapes.clear()
     t = time.perf_counter()
@@ -341,7 +470,7 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
     that K1-K3 launched; returns the launch counts."""
     import torch
 
-    from localhgt_tpu_torch.ops import cuda_sw
+    from localhgt_tpu_torch.ops import cuda_kmer, cuda_sw
     from localhgt_tpu_torch.sim import evaluate
     from localhgt_tpu_torch.sim.simulate import read_truth
     from localhgt_tpu_torch.utils import formats, metrics
@@ -381,6 +510,8 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
     log(f"{tag} device memory peak "
         f"{device_mod.memory_stats(dev)['device_peak_gib']:.2f} GiB")
     log(f"{tag} kernel launches: {json.dumps(launches)}")
+    stages = dict(cuda_kmer.canonical_hashes.stages)
+    log(f"{tag} K4 launches by stage: {json.dumps(stages)}")
     by_bn = collections.Counter()
     for (B, _, N), n in cuda_sw.sw_score.shapes.items():
         by_bn[(B, N)] += n
@@ -389,9 +520,12 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
     k1 = sorted(cuda_sw.sw_align.shapes.items())
     log(f"{tag} K1 launches by (B, M, N): " + ", ".join(
         f"{shape} x {n}" for shape, n in k1))
-    if min(launches[n] for n in ("sw_align", "sw_score", "vote_state")) <= 0:
+    if min(launches[n] for n in ("sw_align", "sw_score", "vote_state",
+                                 *K4_COUNT)) <= 0 or \
+            min(stages.get(st, 0) for st in K4_STAGES) <= 0:
         raise SystemExit(f"a kernel of the bkp path never launched: "
-                         f"{launches}")
+                         f"{launches}; K4 by stage {stages}")
+    launches["canonical_hashes_stages"] = stages
     if score.recall < MIN_RECALL or score.fdr > MAX_FDR:
         raise SystemExit(f"accuracy below the gate: recall {score.recall} "
                          f"(>= {MIN_RECALL}), FDR {score.fdr} (<= {MAX_FDR})")
@@ -455,6 +589,8 @@ def run_sharded(dev, ref, fq1, fq2, work: str, single: dict) -> None:
                 f"sharded bkp ({name}): K3 launched "
                 f"{launches['vote_state']} times, not once for each of {n} "
                 f"shards and {batches} vote batches")
+        if launches["canonical_hashes"] <= 0:
+            raise SystemExit(f"sharded bkp ({name}): K4 never launched")
         if launches["sw_align"] < single["sw_align"]:
             raise SystemExit(
                 f"sharded bkp ({name}): K1 launched {launches['sw_align']} "
@@ -646,12 +782,15 @@ def run_validate(dev, work: str, ref: str, events: str, truth: str) -> dict:
 def run_kmer_stats(dev, fq1: str) -> None:
     from localhgt_tpu_torch.tools import kmer_stats
 
-    t = time.perf_counter()
-    rows = kmer_stats.table_stats(fq1, None, 24, dev)
-    log(f"[kmer_stats] k=24 on one mate in {time.perf_counter() - t:.1f} s: "
-        f"{json.dumps(rows)}")
+    rows, launches, wall = drive(
+        dev, lambda: kmer_stats.table_stats(fq1, None, 24, dev))
+    log(f"[kmer_stats] k=24 on one mate in {wall:.1f} s: "
+        f"{json.dumps(rows)}; kernel launches: {json.dumps(launches)}")
     if not all(0 < r["empty_rate"] < 1 for r in rows):
         raise SystemExit("kmer_stats: empty rate out of (0, 1)")
+    if min(launches[n] for n in K4_COUNT) <= 0:
+        raise SystemExit(f"kmer_stats: the count step's kernels never "
+                         f"launched: {launches}")
 
 
 def run_loss_table(dev, ref, fq1, fq2, truth) -> None:
@@ -788,6 +927,8 @@ def run_pipeline(dev, kernels: list) -> None:
         run_comparator(dev, work)
         for rec in kernels:
             rec["launches"] = launches[counter_of(rec["name"])]
+            if rec["name"] == "canonical_hashes":
+                rec["launches_by_stage"] = launches["canonical_hashes_stages"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -815,10 +956,12 @@ def main() -> int:
     log(f"[env] {nvcc.stdout.strip().splitlines()[-1]}")
     t = time.perf_counter()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(_build.build, n) for n in ("sw", "vote")]:
+    with ThreadPoolExecutor(3) as pool:
+        for fut in [pool.submit(_build.build, n)
+                    for n in ("sw", "vote", "kmer")]:
             fut.result()
-    log(f"[build] K1/K2 sw.cu + K3 vote.cu in {time.perf_counter() - t:.1f} s")
+    log(f"[build] K1/K2 sw.cu + K3 vote.cu + K4/K5 kmer.cu in "
+        f"{time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     kernels = check_kernels(dev)

@@ -26,7 +26,7 @@ import time
 
 import torch
 
-from localhgt_tpu_torch.profile_bkp import BIG
+from localhgt_tpu_torch.tune_vote import BIG
 
 FILES = ("interval.txt", "interval.txt.bed", "acc.csv")
 

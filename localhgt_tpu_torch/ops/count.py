@@ -7,7 +7,11 @@ layout exists to fit 16 GB). Hash indices are int64.
 
 Semantics are the reference's: per batch, each hash's contribution is
 capped at `cap` by ranking duplicates in the sorted batch, a scatter-add
-accumulates, and a (deferrable) clip gives min(total, cap). The hash value
+accumulates, and a (deferrable) clip gives min(total, cap). On a CUDA
+device one step is kernel K4's count epilogue (the flat keys), a sort of
+those 32-bit keys and kernel K5 (min(run length, cap) added at each run's
+hash); `count_keys_plain` and `run_capped_update_plain` (the rank-capped
+contributions and the scatter-add) are their plain versions. The hash value
 0xFFFFFFFF is the invalid sentinel and is never counted, so at k=32 the
 real all-ones k-mer keeps count 0, exactly as in the reference.
 
@@ -20,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from localhgt_tpu_torch.ops import encode
+from localhgt_tpu_torch.ops import cuda_kmer, encode
 
 SENTINEL = 0xFFFFFFFF
 JAX_TABLE_BITS = 30        # the JAX package packs tables for k above this
@@ -57,22 +61,73 @@ def scatter_delta(table: torch.Tensor, s: torch.Tensor,
     table.index_add_(0, s[live], contrib[live])
 
 
-def sorted_contrib(codes, lengths, accept, masks, k: int, cap: int,
-                   kw: int = 0):
-    """Hash one read batch: (sorted int64 hashes [C, N] with invalid
-    windows as SENTINEL, their int8 contributions [C, N]). Arguments as in
-    count_reads_step."""
-    hashes, valid = encode.canonical_hashes(codes, masks, k)
-    L = codes.shape[-1]
+def _flat_keys(hashes, valid, lengths, accept, k: int, kw: int):
+    """The count step's flat int64 keys [C, B * W] from one batch's
+    hashes [C, B, L] and valid [B, L]: the start axis cropped to kw
+    (0 = no crop), every window that is not valid, starts past
+    lengths - k or lies in a read that is not accepted as SENTINEL."""
+    L = hashes.shape[-1]
     if kw and kw < L:
         hashes = hashes[:, :, :kw]
         valid = valid[:, :kw]
         L = kw
-    j = torch.arange(L, device=codes.device)
+    j = torch.arange(L, device=hashes.device)
     valid = (valid & (j[None, :] <= (lengths[:, None].long() - k))
              & accept[:, None])
     C = hashes.shape[0]
-    flat = torch.where(valid.reshape(1, -1), hashes.reshape(C, -1), SENTINEL)
+    return torch.where(valid.reshape(1, -1), hashes.reshape(C, -1), SENTINEL)
+
+
+def count_keys_plain(codes, lengths, accept, masks, k: int, kw: int = 0):
+    """Plain torch version of K4's count epilogue on any device: the keys
+    [C, B * W] that count_reads_step sorts, as the int32 bit patterns of
+    their 32-bit values (cuda_kmer.KEY_DTYPE)."""
+    hashes, valid = encode.canonical_hashes_plain(codes, masks, k)
+    return _flat_keys(hashes, valid, lengths, accept, k, kw).to(
+        cuda_kmer.KEY_DTYPE)
+
+
+def count_keys(codes, lengths, accept, masks, k: int, kw: int = 0):
+    """One read batch's flat keys: kernel K4 with the count epilogue on a
+    CUDA device, count_keys_plain on the CPU. Arguments as in
+    count_reads_step."""
+    if codes.device.type == "cuda":
+        return cuda_kmer.count_keys(codes, lengths, accept, masks, k, kw)
+    if codes.device.type != "cpu":
+        raise ValueError(f"count_keys: unsupported device {codes.device}")
+    return count_keys_plain(codes, lengths, accept, masks, k, kw)
+
+
+def run_capped_update_plain(table: torch.Tensor, s: torch.Tensor,
+                            cap: int) -> None:
+    """Plain torch version of K5 on any device: the rank-capped
+    contributions of one sorted key row s [N] scattered into `table`."""
+    s64 = s.to(torch.int64) & SENTINEL  # the unsigned value of any 32 bits
+    scatter_delta(table, s64, rank_capped_contrib(s64[None], cap)[0])
+
+
+def run_capped_update(table: torch.Tensor, s: torch.Tensor,
+                      cap: int) -> None:
+    """Add min(run length, cap) of every run of the sorted key row s to
+    `table` in place: kernel K5 on a CUDA device, run_capped_update_plain
+    on the CPU."""
+    if table.device.type == "cuda":
+        return cuda_kmer.run_capped_update(table, s, cap)
+    if table.device.type != "cpu":
+        raise ValueError(f"run_capped_update: unsupported device "
+                         f"{table.device}")
+    return run_capped_update_plain(table, s, cap)
+
+
+def sorted_contrib(codes, lengths, accept, masks, k: int, cap: int,
+                   kw: int = 0):
+    """Hash one read batch: (sorted int64 hashes [C, N] with invalid
+    windows as SENTINEL, their int8 contributions [C, N]). Arguments as in
+    count_reads_step. The multi-device count's step
+    (parallel/extract_sharded.py), which compacts these into (hash, delta)
+    streams for the table slices."""
+    hashes, valid = encode.canonical_hashes(codes, masks, k)
+    flat = _flat_keys(hashes, valid, lengths, accept, k, kw)
     del hashes, valid
     s = torch.sort(flat, dim=1).values
     del flat
@@ -86,10 +141,13 @@ def count_reads_step(tables, codes, lengths, accept, masks, k: int,
     codes uint8 [B, L], lengths int32 [B], accept bool [B], all on the
     tables' device. kw crops the k-mer start axis to the batch's real
     window before the sort (0 = no crop), as in the reference; clip=False
-    defers the saturating sweep to clip_tables."""
-    s, contrib = sorted_contrib(codes, lengths, accept, masks, k, cap, kw)
+    defers the saturating sweep to clip_tables. On a CUDA device the step
+    is K4's count epilogue, one sort of the 32-bit keys (as int32) and K5
+    a table: the host waits for nothing."""
+    s = torch.sort(count_keys(codes, lengths, accept, masks, k, kw),
+                   dim=1).values
     for i, t in enumerate(tables):
-        scatter_delta(t, s[i], contrib[i])
+        run_capped_update(t, s[i], cap)
         if clip:
             t.clamp_(max=cap)
 

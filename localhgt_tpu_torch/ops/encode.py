@@ -6,6 +6,10 @@ values: torch's uint32 has no shifts, `~`, `minimum` or `<` on the CPU, and
 int64 keeps the unsigned order that the canonical min and the 0xFFFFFFFF
 count sentinel rely on. Every shift left and every `~` is masked back to
 32 bits. `hasher_for` is copied from the JAX package.
+
+`canonical_hashes` dispatches on the device: CUDA tensors go to kernel K4
+(ops/cuda_kmer.py, csrc/kmer.cu), CPU tensors to `canonical_hashes_plain`,
+the torch formulation below, which is also K4's plain version.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from localhgt_tpu_torch.ops import coder
+from localhgt_tpu_torch.ops import coder, cuda_kmer
 
 U32 = 0xFFFFFFFF
 
@@ -59,15 +63,29 @@ def canonical_hashes(codes: torch.Tensor, masks, k: int):
     """Canonical (min of strand) k-mer hashes for every window start.
 
     Args:
-        codes: uint8 base codes [..., L] on any device.
+        codes: uint8 base codes [..., L] on a CUDA device (kernel K4) or
+            the CPU (canonical_hashes_plain).
         masks: uint32 [coder_num, 3] numpy masks (encode.hasher_for).
         k: k-mer length, 1..32.
 
     Returns:
-        hashes: int64 [coder_num, ..., L] of 32-bit values; positions
-            j > L-k hold garbage.
+        hashes: int64 [coder_num, ..., L] of 32-bit values; at j > L-k
+            the window is read with zeros past L (a non-base), so those
+            positions hold defined values that no caller uses.
         valid: bool [..., L]; True iff window j is all A/C/G/T and j <= L-k.
     """
+    if codes.device.type == "cuda":
+        return cuda_kmer.canonical_hashes(codes, masks, k)
+    if codes.device.type != "cpu":
+        raise ValueError(f"canonical_hashes: unsupported device "
+                         f"{codes.device}")
+    return canonical_hashes_plain(codes, masks, k)
+
+
+def canonical_hashes_plain(codes: torch.Tensor, masks, k: int):
+    """Plain torch version of K4 on any device: the bit-sliced
+    formulation of the JAX package, log-doubling windows over the three
+    partition streams, bit reversals for the reverse complement."""
     kmask = (1 << k) - 1
     c = codes.to(torch.int64)
     validbit = c < 4

@@ -24,6 +24,7 @@ _STAGES: dict[str, float] = {}
 _COUNTERS: dict[str, float] = {}
 _SERIES: dict[str, list] = {}
 _STAGE_RSS: dict[str, float] = {}
+_OPEN: list[str] = []  # the stages open now, innermost last
 
 
 def reset() -> None:
@@ -87,11 +88,20 @@ def stage(name: str):
     """Time a pipeline stage and sample the host RSS at its end; under an
     active torch.profiler the stage is also a span of its trace."""
     t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
-        yield
+    _OPEN.append(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        _OPEN.pop()
     add_time(name, time.perf_counter() - t0)
     hostmem.trim()  # return freed arena pages before sampling RSS
     _STAGE_RSS[name] = host_rss_gb()
+
+
+def current_stage() -> str:
+    """The innermost stage open now; "" outside every stage."""
+    return _OPEN[-1] if _OPEN else ""
 
 
 def stage_walls() -> dict[str, float]:

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K3 on the card against their plain torch versions.
+"""Kernels K1 to K5 on the card against their plain torch versions.
 
 These tests need an NVIDIA GPU with nvcc: they carry the `cuda` marker and
 skip without a card. Run them on one with
@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from localhgt_tpu_torch.ops import cuda_sw, cuda_vote
+from localhgt_tpu_torch.ops import count, cuda_kmer, cuda_sw, cuda_vote
+from localhgt_tpu_torch.ops import encode
 
 pytestmark = pytest.mark.cuda
 
@@ -339,6 +340,135 @@ def test_vote_kernel_raises_above_nine_hashes(dev):
     with pytest.raises(ValueError, match="hash functions"):
         cuda_vote.vote_state(z, z)
     assert cuda_vote.vote_state.launches == n0
+
+
+# K4's callers: (rows, L) of codes a call hashes. Count: a 65,536-read
+# batch padded to 192; scan: 8 reference chunks of 2^20 (`big`'s contigs
+# of 1 Mbp); peak set: one chunk of 2^22 + k; vote: a 32,768-pair mate
+# batch; and a ragged width
+KMER_SHAPES = {"count": (65_536, 192), "scan": (8, 1 << 20),
+               "peakset": (1, (1 << 22) + 32), "vote": (32_768, 192),
+               "ragged": (77, 150)}
+
+
+def _codes(rng, shape, n_frac=0.01):
+    codes = rng.integers(0, 4, shape).astype(np.uint8)
+    codes[rng.random(shape) < n_frac] = 4
+    codes[0, : shape[1] // 3] = rng.integers(4, 256, shape[1] // 3)
+    return codes
+
+
+@pytest.mark.parametrize("k", [15, 18, 24, 31, 32])
+@pytest.mark.parametrize("caller", list(KMER_SHAPES))
+def test_kmer_hashes_kernel_is_bit_equal_to_plain(dev, caller, k):
+    """K4 gives canonical_hashes_plain's hashes and valid bits at every
+    position, past L - k included."""
+    rng = np.random.default_rng(k + len(caller))
+    masks, _ = encode.hasher_for(k, 3, seed=k)
+    codes = torch.from_numpy(_codes(rng, KMER_SHAPES[caller])).to(dev)
+    n0 = cuda_kmer.canonical_hashes.launches
+    got_h, got_v = encode.canonical_hashes(codes, masks, k)
+    assert cuda_kmer.canonical_hashes.launches == n0 + 1
+    want_h, want_v = encode.canonical_hashes_plain(codes, masks, k)
+    assert torch.equal(got_v, want_v)
+    assert torch.equal(got_h, want_h)
+
+
+def test_kmer_hashes_kernel_takes_any_leading_shape(dev):
+    rng = np.random.default_rng(3)
+    masks, _ = encode.hasher_for(32, 5, seed=2)
+    codes = torch.from_numpy(_codes(rng, (6, 70))).to(dev).view(2, 3, 70)
+    got_h, got_v = encode.canonical_hashes(codes, masks, 32)
+    want_h, want_v = encode.canonical_hashes_plain(codes, masks, 32)
+    assert got_h.shape == (5, 2, 3, 70)
+    assert torch.equal(got_v, want_v) and torch.equal(got_h, want_h)
+
+
+def _read_batch(rng, B, L, k):
+    codes = _codes(rng, (B, L))
+    codes[1 : B // 8] = codes[0]          # runs longer than any cap
+    codes[B // 8] = 4                     # an all-N read
+    lengths = rng.integers(k - 3, L + 1, B).astype(np.int32)
+    accept = rng.random(B) < 0.9
+    return (torch.from_numpy(codes), torch.from_numpy(lengths),
+            torch.from_numpy(accept))
+
+
+@pytest.mark.parametrize("k,kw", [(32, 128), (32, 0), (18, 64), (24, 100)])
+def test_count_keys_kernel_matches_plain_and_sorted_contrib(dev, k, kw):
+    """K4's count epilogue equals count_keys_plain in place and
+    sorted_contrib's keys as a multiset per row."""
+    rng = np.random.default_rng(k + kw)
+    masks, _ = encode.hasher_for(k, 3, seed=1)
+    codes, lengths, accept = (x.to(dev) for x in _read_batch(
+        rng, 65_536, 192, k))
+    n0 = cuda_kmer.count_keys.launches
+    got = count.count_keys(codes, lengths, accept, masks, k, kw)
+    assert cuda_kmer.count_keys.launches == n0 + 1
+    assert got.dtype == cuda_kmer.KEY_DTYPE
+    assert torch.equal(got, count.count_keys_plain(
+        codes, lengths, accept, masks, k, kw))
+    s, _ = count.sorted_contrib(codes, lengths, accept, masks, k, 3, kw)
+    unsigned = got.to(torch.int64) & count.SENTINEL
+    assert torch.equal(torch.sort(unsigned, dim=1).values, s)
+
+
+@pytest.mark.parametrize("cap", [0, 1, 3, 7, 127])
+def test_run_capped_update_kernel_matches_plain(dev, cap):
+    """K5's table equals scatter_delta of rank_capped_contrib, onto a
+    table that already holds counts."""
+    k = 24
+    rng = np.random.default_rng(cap)
+    masks, _ = encode.hasher_for(k, 3, seed=1)
+    codes, lengths, accept = (x.to(dev) for x in _read_batch(
+        rng, 16_384, 192, k))
+    s = torch.sort(count.count_keys(codes, lengths, accept, masks, k, 128),
+                   dim=1).values
+    base = torch.from_numpy(rng.integers(0, 4, 1 << k).astype(np.int8))
+    for i in range(3):
+        got, want = base.to(dev), base.to(dev)
+        n0 = cuda_kmer.run_capped_update.launches
+        count.run_capped_update(got, s[i], cap)
+        assert cuda_kmer.run_capped_update.launches == n0 + 1
+        s64 = s[i].to(torch.int64) & count.SENTINEL
+        count.scatter_delta(want, s64,
+                            count.rank_capped_contrib(s64[None], cap)[0])
+        assert torch.equal(got, want)
+        assert cap == 0 or not torch.equal(got, base.to(dev))
+
+
+def test_count_step_on_the_card_never_waits_for_the_host(dev):
+    """A count step raises nothing under sync debug mode "error": K4's
+    count epilogue, the sort and K5 a table, with and without the clip;
+    its tables equal the plain route's."""
+    k, cap = 24, 3
+    rng = np.random.default_rng(8)
+    masks, _ = encode.hasher_for(k, 3, seed=1)
+    batch = _read_batch(rng, 8_192, 192, k)
+    on_card = [count.make_table(k, dev) for _ in range(3)]
+    plain = [count.make_table(k, dev) for _ in range(3)]
+    codes, lengths, accept = (x.to(dev) for x in batch)
+    count.count_reads_step(on_card, codes, lengths, accept, masks, k, cap,
+                           clip=False, kw=128)  # builds and loads kmer.cu
+    n0 = cuda_kmer.run_capped_update.launches
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for clip in (False, True):
+            count.count_reads_step(on_card, codes, lengths, accept, masks,
+                                   k, cap, clip=clip, kw=128)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cuda_kmer.run_capped_update.launches == n0 + 6
+    for clip in (False, False, True):
+        s = torch.sort(count.count_keys_plain(
+            codes, lengths, accept, masks, k, 128), dim=1).values
+        for t, row in zip(plain, s):
+            count.run_capped_update_plain(t, row, cap)
+            if clip:
+                t.clamp_(max=cap)
+    for g, w in zip(on_card, plain):
+        assert torch.equal(g, w)
 
 
 def _card_mesh(n_shards=4):
