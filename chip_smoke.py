@@ -24,12 +24,14 @@ Phases, each fatal on failure:
      that is no multiple of 4 and at the sharded vote's B; K4 (the
      canonical hashes, bit-equal at every position) at the count, scan,
      peak-set and vote shapes, K4's count epilogue and K5 (the run-capped
-     table update, on a k=32 table) on a 65,536-read batch at depth 5;
+     table update, one launch for the three key rows into three k=32
+     tables, its time also given a row) on a 65,536-read batch at depth 5;
   4. simulate the `big` fixture (100 genomes x 1 Mbp, 50 HGTs, depth 5,
      seed 42) in a temporary directory;
   5. `bkp` at k=32 through the port's CLI entry on the card: every kernel
      must launch, K4 in the scan, peak-set and vote stages, K4's count
-     epilogue and K5 in the count stage; recall >= 0.90 and FDR <= 0.05
+     epilogue and K5 in the count stage, K5 once a count batch (for all
+     three tables); recall >= 0.90 and FDR <= 0.05
      (+-50 bp); logs the (B, N) of K2's launches and the (B, M, N) of
      K1's;
   6. `event` on the output folder through the port's CLI, then the
@@ -37,7 +39,8 @@ Phases, each fatal on failure:
      (a mesh of one shard) and `detect_breakpoint` over a mesh of four
      shards that all sit on the card; each must write phase 5's
      interval.txt, bed and acc.csv byte for byte, K3 must launch once per
-     shard and vote batch and K1 at least as often as in phase 5;
+     shard and vote batch and K1 at least as often as in phase 5, K4's
+     count epilogue and K5 never (the mesh count has its own step);
   7. `bkp --refine_fq 1` at k=32 after 2% of the pairs were rewritten to a
      short insert with an adapter tail: every such pair comes out trimmed
      to its insert, the phase-5 gate holds and K1-K3 launch;
@@ -48,7 +51,7 @@ Phases, each fatal on failure:
      from random reference windows: >= 90% validated, and K1's
      wide-reference variant launches;
  10. `kmer_stats` at k=24 on one mate of `big`: K4's count epilogue and
-     K5 launch;
+     K5 launch, K5 once a count batch;
  11. `tools.mapq_calibration.run` on the card: its report equals the JAX
      package's (reports/mapq_calibration.json) key for key, and K1
      launches;
@@ -326,35 +329,18 @@ def check_kernels(dev) -> list:
     return out
 
 
-def depth5_reads(rng, B: int, L: int, genome_len: int) -> np.ndarray:
-    """codes uint8 [B, L]: 150-bp reads at random starts and strands of a
-    random genome of `genome_len` bases, padded with N to L, so that a
-    k-mer recurs about B * 150 / genome_len times, as at `big`'s depth 5
-    (1% substitutions)."""
-    from localhgt_tpu_torch.ops import coder
-
-    genome = rng.integers(0, 4, genome_len).astype(np.uint8)
-    starts = rng.integers(0, genome_len - 150, B)
-    reads = genome[starts[:, None] + np.arange(150)[None, :]]
-    rc = rng.random(B) < 0.5
-    reads[rc] = coder.COMPLEMENT[reads[rc]][:, ::-1]
-    sub = rng.random(reads.shape) < 0.01
-    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
-    codes = np.full((B, L), 4, np.uint8)
-    codes[:, :150] = reads
-    return codes
-
-
 def kmer_rows(dev, rng, compare) -> list:
     """Phase 3's K4 and K5 rows at k=32 and three hash functions. K4 at
     the count step's batch (65,536 reads padded to 192: the record), the
     scan's 8 chunks of 2^20, the peak set's chunk of 2^22 + k and the
     vote's 32,768-pair mate batch; its count epilogue and K5 on a count
-    batch of depth-5 reads, K5 into a k=32 table (4 GiB) that already
-    holds that batch's counts."""
+    batch of depth-5 reads, K5 in one launch for the three sorted key rows
+    into three k=32 tables (4 GiB each) that already hold that batch's
+    counts."""
     import torch
 
     from localhgt_tpu_torch.ops import count, cuda_kmer, encode
+    from localhgt_tpu_torch.tune_kmer import depth5_reads
 
     k, C, cap, kw = KMER, 3, 3, 128
     masks, _ = encode.hasher_for(k, C, seed=1)
@@ -394,30 +380,39 @@ def kmer_rows(dev, rng, compare) -> list:
         source=KMER_SOURCE))
 
     s = torch.sort(cuda_kmer.count_keys(codes, lengths, accept, masks, k,
-                                        kw), dim=1).values[0].contiguous()
-    s64 = s.to(torch.int64) & count.SENTINEL
-    starts = torch.ones_like(s64, dtype=torch.bool)
-    starts[1:] = s64[1:] != s64[:-1]
-    runs = s64[starts & (s64 != count.SENTINEL)]
-    sectors = int(torch.unique(runs // SECTOR_BYTES).numel())
-    log(f"[kernels] K5 row: {s.numel()} keys, {runs.numel()} runs, "
-        f"{sectors} table sectors")
-    t_kern = count.make_table(k, dev)
-    t_plain = count.make_table(k, dev)
+                                        kw), dim=1).values
+    n_runs, sectors = [], 0
+    for row in s:
+        s64 = row.to(torch.int64) & count.SENTINEL
+        starts = torch.ones_like(s64, dtype=torch.bool)
+        starts[1:] = s64[1:] != s64[:-1]
+        runs = s64[starts & (s64 != count.SENTINEL)]
+        n_runs.append(runs.numel())
+        sectors += int(torch.unique(runs // SECTOR_BYTES).numel())
+    log(f"[kernels] K5 rows: {s.shape[0]} x {s.shape[1]} keys, {n_runs} "
+        f"runs, {sectors} table sectors")
+    t_kern = [count.make_table(k, dev) for _ in range(C)]
+    t_plain = [count.make_table(k, dev) for _ in range(C)]
     count.run_capped_update_plain(t_kern, s, cap)
-    t_plain.copy_(t_kern)
+    for a, b in zip(t_plain, t_kern):
+        a.copy_(b)
 
     def kern():
         cuda_kmer.run_capped_update(t_kern, s, cap)
-        return t_kern
+        return tuple(t_kern)
 
     def plain():
         count.run_capped_update_plain(t_plain, s, cap)
-        return t_plain
+        return tuple(t_plain)
 
-    out.append(compare(
+    rec = compare(
         "run_capped_update", K5_XLA, kern, plain, 10,
-        4 * s.numel() + 2 * SECTOR_BYTES * sectors, 0, source=KMER_SOURCE))
+        4 * s.numel() + 2 * SECTOR_BYTES * sectors, 0, source=KMER_SOURCE)
+    # one launch for the C rows; a row's share, as a launch a row timed it
+    rec["ms_per_row"] = rec["ms"] / C
+    log(f"[kernels] run_capped_update: {rec['ms_per_row']:.4f} ms a row "
+        f"({C} rows a launch)")
+    out.append(rec)
     del t_kern, t_plain
     torch.cuda.empty_cache()
     return out
@@ -463,6 +458,18 @@ def drive(dev, fn):
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t
     return res, {n: getattr(w, a) for n, (w, a) in counters().items()}, wall
+
+
+def check_k5_batches(tag: str, launches: dict) -> None:
+    """K5 launches once a count batch (K4's count epilogue once a batch
+    too), for all the tables together."""
+    log(f"{tag} count batches (K4 count epilogue launches) "
+        f"{launches['count_keys']}, K5 launches "
+        f"{launches['run_capped_update']}")
+    if launches["run_capped_update"] != launches["count_keys"]:
+        raise SystemExit(f"{tag} K5 launched {launches['run_capped_update']}"
+                         f" times, not once for each of "
+                         f"{launches['count_keys']} count batches")
 
 
 def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
@@ -526,6 +533,7 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
         raise SystemExit(f"a kernel of the bkp path never launched: "
                          f"{launches}; K4 by stage {stages}")
     launches["canonical_hashes_stages"] = stages
+    check_k5_batches(tag, launches)
     if score.recall < MIN_RECALL or score.fdr > MAX_FDR:
         raise SystemExit(f"accuracy below the gate: recall {score.recall} "
                          f"(>= {MIN_RECALL}), FDR {score.fdr} (<= {MAX_FDR})")
@@ -591,6 +599,10 @@ def run_sharded(dev, ref, fq1, fq2, work: str, single: dict) -> None:
                 f"shards and {batches} vote batches")
         if launches["canonical_hashes"] <= 0:
             raise SystemExit(f"sharded bkp ({name}): K4 never launched")
+        if launches["run_capped_update"] or launches["count_keys"]:
+            raise SystemExit(f"sharded bkp ({name}): the mesh count "
+                             f"launched the single-device count step's "
+                             f"kernels: {launches}")
         if launches["sw_align"] < single["sw_align"]:
             raise SystemExit(
                 f"sharded bkp ({name}): K1 launched {launches['sw_align']} "
@@ -791,6 +803,7 @@ def run_kmer_stats(dev, fq1: str) -> None:
     if min(launches[n] for n in K4_COUNT) <= 0:
         raise SystemExit(f"kmer_stats: the count step's kernels never "
                          f"launched: {launches}")
+    check_k5_batches("[kmer_stats]", launches)
 
 
 def run_loss_table(dev, ref, fq1, fq2, truth) -> None:

@@ -10,8 +10,9 @@ capped at `cap` by ranking duplicates in the sorted batch, a scatter-add
 accumulates, and a (deferrable) clip gives min(total, cap). On a CUDA
 device one step is kernel K4's count epilogue (the flat keys), a sort of
 those 32-bit keys and kernel K5 (min(run length, cap) added at each run's
-hash); `count_keys_plain` and `run_capped_update_plain` (the rank-capped
-contributions and the scatter-add) are their plain versions. The hash value
+hash, one launch for every table); `count_keys_plain` and
+`run_capped_update_plain` (the rank-capped contributions and the
+scatter-add) are their plain versions. The hash value
 0xFFFFFFFF is the invalid sentinel and is never counted, so at k=32 the
 real all-ones k-mer keeps count 0, exactly as in the reference.
 
@@ -98,25 +99,25 @@ def count_keys(codes, lengths, accept, masks, k: int, kw: int = 0):
     return count_keys_plain(codes, lengths, accept, masks, k, kw)
 
 
-def run_capped_update_plain(table: torch.Tensor, s: torch.Tensor,
-                            cap: int) -> None:
+def run_capped_update_plain(tables, s: torch.Tensor, cap: int) -> None:
     """Plain torch version of K5 on any device: the rank-capped
-    contributions of one sorted key row s [N] scattered into `table`."""
+    contributions of each sorted key row s[c] of s [C, N] scattered into
+    tables[c]."""
     s64 = s.to(torch.int64) & SENTINEL  # the unsigned value of any 32 bits
-    scatter_delta(table, s64, rank_capped_contrib(s64[None], cap)[0])
+    for t, row, contrib in zip(tables, s64, rank_capped_contrib(s64, cap)):
+        scatter_delta(t, row, contrib)
 
 
-def run_capped_update(table: torch.Tensor, s: torch.Tensor,
-                      cap: int) -> None:
-    """Add min(run length, cap) of every run of the sorted key row s to
-    `table` in place: kernel K5 on a CUDA device, run_capped_update_plain
-    on the CPU."""
-    if table.device.type == "cuda":
-        return cuda_kmer.run_capped_update(table, s, cap)
-    if table.device.type != "cpu":
-        raise ValueError(f"run_capped_update: unsupported device "
-                         f"{table.device}")
-    return run_capped_update_plain(table, s, cap)
+def run_capped_update(tables, s: torch.Tensor, cap: int) -> None:
+    """Add min(run length, cap) of every run of the sorted key row s[c]
+    to tables[c] in place, for the C rows of s [C, N]: kernel K5 (one
+    launch) on a CUDA device, run_capped_update_plain on the CPU."""
+    dev = tables[0].device
+    if dev.type == "cuda":
+        return cuda_kmer.run_capped_update(tables, s, cap)
+    if dev.type != "cpu":
+        raise ValueError(f"run_capped_update: unsupported device {dev}")
+    return run_capped_update_plain(tables, s, cap)
 
 
 def sorted_contrib(codes, lengths, accept, masks, k: int, cap: int,
@@ -142,14 +143,13 @@ def count_reads_step(tables, codes, lengths, accept, masks, k: int,
     tables' device. kw crops the k-mer start axis to the batch's real
     window before the sort (0 = no crop), as in the reference; clip=False
     defers the saturating sweep to clip_tables. On a CUDA device the step
-    is K4's count epilogue, one sort of the 32-bit keys (as int32) and K5
-    a table: the host waits for nothing."""
+    is K4's count epilogue, one sort of the 32-bit keys (as int32) and
+    one K5 launch for every table: the host waits for nothing."""
     s = torch.sort(count_keys(codes, lengths, accept, masks, k, kw),
                    dim=1).values
-    for i, t in enumerate(tables):
-        run_capped_update(t, s[i], cap)
-        if clip:
-            t.clamp_(max=cap)
+    run_capped_update(tables, s, cap)
+    if clip:
+        clip_tables(tables, cap)
 
 
 def clip_tables(tables, cap: int = 3) -> None:

@@ -3,7 +3,8 @@
 `canonical_hashes` (K4) computes what ops/encode.py::canonical_hashes_plain
 computes, `count_keys` (K4 with the count epilogue) what
 ops/count.py::count_keys_plain computes, and `run_capped_update` (K5) what
-ops/count.py::run_capped_update_plain does to a table. Each launches the
+ops/count.py::run_capped_update_plain does to the tables, in one launch
+for all of them. Each launches the
 CUDA kernel of `csrc/kmer.cu` on CUDA tensors and raises on anything else:
 `encode.canonical_hashes`, `count.count_keys` and `count.run_capped_update`
 dispatch on the device and give CPU tensors the plain versions. Each
@@ -34,7 +35,7 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "lht_kmer_hashes": [_P, _LL, _I, _I, _I, _P, _P, _P, _P],
     "lht_kmer_count_keys": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "lht_kmer_run_capped_update": [_P, _LL, _P, _I, _P],
+    "lht_kmer_run_capped_update": [_P, _I, _LL, _P, _I, _P],
 }
 KERNEL_MAX_HASHES = 9  # C the kernel holds masks for (config: 1-9)
 # the count step's 32-bit keys, held as their int32 bit patterns: torch's
@@ -132,34 +133,46 @@ def count_keys(codes: torch.Tensor, lengths: torch.Tensor,
     return keys
 
 
-def run_capped_update(table: torch.Tensor, s: torch.Tensor, cap: int) -> None:
-    """K5. Add min(run length, cap) of every run of equal keys in the
-    sorted key row s [N] (KEY_DTYPE, sorted as int32) to the int8 table
-    in place; the
-    sentinel 0xFFFFFFFF is never counted. Equal to
-    count.run_capped_update_plain."""
-    if table.device.type != "cuda" or s.device != table.device:
-        raise ValueError(f"run_capped_update: the kernel takes a table and "
-                         f"keys on one CUDA device, got {table.device} and "
-                         f"{s.device}")
-    if table.dtype != torch.int8 or table.dim() != 1:
-        raise TypeError(f"run_capped_update: want an int8 table [2^k], got "
-                        f"{table.dtype} {tuple(table.shape)}")
-    if s.dtype != KEY_DTYPE or s.dim() != 1:
-        raise TypeError(f"run_capped_update: want one {KEY_DTYPE} key row, got "
-                        f"{s.dtype} {tuple(s.shape)}")
-    if not table.is_contiguous():
-        raise ValueError("run_capped_update: the table must be contiguous: "
-                         "it is updated in place")
+def run_capped_update(tables, s: torch.Tensor, cap: int) -> None:
+    """K5, one launch for every table. Add min(run length, cap) of every
+    run of equal keys in row c of the sorted keys s [C, N] (KEY_DTYPE,
+    sorted as int32) to the int8 table tables[c] in place; the sentinel
+    0xFFFFFFFF is never counted. Equal to count.run_capped_update_plain."""
+    tables = list(tables)
+    if not 1 <= len(tables) <= KERNEL_MAX_HASHES:
+        raise ValueError(f"run_capped_update: want 1 to {KERNEL_MAX_HASHES} "
+                         f"tables, got {len(tables)}")
+    dev = tables[0].device
+    if dev.type != "cuda" or s.device != dev or any(
+            t.device != dev for t in tables):
+        raise ValueError(f"run_capped_update: the kernel takes tables and "
+                         f"keys on one CUDA device, got "
+                         f"{[str(t.device) for t in tables]} and {s.device}")
+    for t in tables:
+        if t.dtype != torch.int8 or t.dim() != 1:
+            raise TypeError(f"run_capped_update: want int8 tables [2^k], got "
+                            f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("run_capped_update: the tables must be "
+                             "contiguous: they are updated in place")
+        if t.numel() % 4 or t.data_ptr() % 4:
+            raise ValueError("run_capped_update: the kernel updates a "
+                             "table's bytes a 32-bit word at a time: want "
+                             "2^k entries, k >= 2, from a 4-byte boundary")
+    if s.dtype != KEY_DTYPE or s.shape[:1] != (len(tables),) or s.dim() != 2:
+        raise TypeError(f"run_capped_update: want {KEY_DTYPE} key rows "
+                        f"[{len(tables)}, N], got {s.dtype} "
+                        f"{tuple(s.shape)}")
     if not 0 <= cap <= 127:
         raise ValueError(f"run_capped_update: cap={cap} is outside 0..127")
     if s.numel() == 0:
         return
-    row = s.contiguous()
-    dev = table.device
+    rows = s.contiguous()
+    ptrs = np.array([t.data_ptr() for t in tables], dtype=np.uint64)
     with torch.cuda.device(dev):
         err = _lib().lht_kmer_run_capped_update(
-            row.data_ptr(), row.numel(), table.data_ptr(), cap, _stream(dev))
+            rows.data_ptr(), len(tables), rows.shape[1], ptrs.ctypes.data,
+            cap, _stream(dev))
     _build.check(err, "lht_kmer_run_capped_update")
     run_capped_update.launches += 1
 

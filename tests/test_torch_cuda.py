@@ -413,10 +413,47 @@ def test_count_keys_kernel_matches_plain_and_sorted_contrib(dev, k, kw):
     assert torch.equal(torch.sort(unsigned, dim=1).values, s)
 
 
+@pytest.mark.parametrize("k", range(15, 33))
+@pytest.mark.parametrize("kw", [0, 64, 128])
+def test_count_keys_kernel_at_every_k_and_crop(dev, k, kw):
+    """K4's count epilogue (a warp a unit of up to 128 starts of a read,
+    persistent blocks) equals count_keys_plain at every k the count step
+    takes at k >= 15 and its crops, on a width a unit does not divide."""
+    rng = np.random.default_rng(100 * k + kw)
+    masks, _ = encode.hasher_for(k, 3, seed=k)
+    for B, L in ((4_099, 192), (517, 150)):
+        codes, lengths, accept = (x.to(dev) for x in _read_batch(
+            rng, B, L, k))
+        n0 = cuda_kmer.count_keys.launches
+        got = count.count_keys(codes, lengths, accept, masks, k, kw)
+        assert cuda_kmer.count_keys.launches == n0 + 1
+        assert torch.equal(got, count.count_keys_plain(
+            codes, lengths, accept, masks, k, kw))
+
+
+def _k5_check(dev, s, cap, k=24, seed=0):
+    """K5 over the rows of s [C, N] (int32, sorted) in one launch against
+    run_capped_update_plain, onto tables of every byte value (a negative
+    byte plus a run overflows it: the kernel's word add must not carry)."""
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(rng.integers(-128, 128, (s.shape[0], 1 << k))
+                            .astype(np.int8)).to(dev)
+    got = [t.clone() for t in base]
+    want = [t.clone() for t in base]
+    n0 = cuda_kmer.run_capped_update.launches
+    count.run_capped_update(got, s, cap)
+    assert cuda_kmer.run_capped_update.launches == n0 + 1
+    count.run_capped_update_plain(want, s, cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got, base
+
+
 @pytest.mark.parametrize("cap", [0, 1, 3, 7, 127])
 def test_run_capped_update_kernel_matches_plain(dev, cap):
-    """K5's table equals scatter_delta of rank_capped_contrib, onto a
-    table that already holds counts."""
+    """K5's tables, one launch for the three rows of a count batch, equal
+    scatter_delta of rank_capped_contrib, onto tables that already hold
+    counts."""
     k = 24
     rng = np.random.default_rng(cap)
     masks, _ = encode.hasher_for(k, 3, seed=1)
@@ -424,23 +461,101 @@ def test_run_capped_update_kernel_matches_plain(dev, cap):
         rng, 16_384, 192, k))
     s = torch.sort(count.count_keys(codes, lengths, accept, masks, k, 128),
                    dim=1).values
-    base = torch.from_numpy(rng.integers(0, 4, 1 << k).astype(np.int8))
+    got, base = _k5_check(dev, s, cap, k, seed=cap)
     for i in range(3):
-        got, want = base.to(dev), base.to(dev)
-        n0 = cuda_kmer.run_capped_update.launches
-        count.run_capped_update(got, s[i], cap)
-        assert cuda_kmer.run_capped_update.launches == n0 + 1
         s64 = s[i].to(torch.int64) & count.SENTINEL
+        want = base[i].clone()
         count.scatter_delta(want, s64,
                             count.rank_capped_contrib(s64[None], cap)[0])
-        assert torch.equal(got, want)
-        assert cap == 0 or not torch.equal(got, base.to(dev))
+        assert torch.equal(got[i], want)
+        assert cap == 0 or not torch.equal(got[i], base[i])
+
+
+def _straddling_row(n, rng, k=24):
+    """A sorted key row of n keys in runs of 1 to 14, with no run start
+    at a multiple of 128: every 128-key boundary lies inside a run."""
+    q = np.arange(n)
+    starts = ((q % 7 == 3) | (q % 11 == 5)) & (q % 128 != 0)
+    starts[0] = True
+    keys = np.sort(rng.choice(1 << k, int(starts.sum()), replace=False))
+    return keys[np.cumsum(starts) - 1].astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1_000, 65_536 + 5])
+@pytest.mark.parametrize("cap", [1, 3, 9, 127])
+def test_run_capped_update_kernel_on_edge_rows(dev, n, cap):
+    """K5 on a row of short runs over every 128-key boundary, a row of
+    all one key, a row of all sentinels and a row of long runs (up to 300
+    keys, past the cap + 32 keys a head reads; the sentinel's among them),
+    in one launch; n not a multiple of 4, so rows after the first start
+    off a 16-byte boundary."""
+    rng = np.random.default_rng(n + cap)
+    lengths = rng.integers(1, 301, n)
+    keys = np.sort(rng.choice(1 << 24, n, replace=False)).astype(np.int32)
+    keys[0] = -1
+    rows = np.stack([
+        _straddling_row(n, rng),
+        np.full(n, 77, np.int32),
+        np.full(n, -1, np.int32),
+        np.repeat(keys, lengths)[:n],
+    ])
+    got, base = _k5_check(dev, torch.from_numpy(rows).to(dev), cap,
+                          seed=n)
+    assert int((got[1] != base[1]).sum()) == 1
+    assert int(got[1][77] - base[1][77]) == min(n, cap)
+    assert torch.equal(got[2], base[2])
+
+
+@pytest.mark.parametrize("cap", [1, 3, 127])
+def test_run_capped_update_kernel_on_shared_words(dev, cap):
+    """Keys from narrow ranges put several heads in one 32-bit table word
+    (the compare-and-swap path) beside words of one head (the atomic add
+    with its carry taken back), with runs past the cap and past what a
+    head reads, in four rows of one launch."""
+    rng = np.random.default_rng(cap)
+    rows = []
+    for span, longest in ((300, 4), (600, 9), (1 << 20, 300), (400, 150)):
+        keys = np.sort(rng.choice(span, 250, replace=False))
+        rows.append(np.repeat(keys, rng.integers(1, longest + 1, 250)))
+    n = min(len(r) for r in rows)
+    s = torch.from_numpy(np.stack([r[:n] for r in rows]).astype(np.int32))
+    _k5_check(dev, s.to(dev), cap, k=22, seed=cap)
+
+
+def test_run_capped_update_kernel_at_the_top_of_a_k32_table(dev):
+    """At k=32 the sentinel's word holds keys 0xFFFFFFFC to 0xFFFFFFFE,
+    which sort just before it as int32; the table's first and last 64
+    bytes hold every byte value."""
+    rng = np.random.default_rng(32)
+    keys = np.sort(rng.choice(np.arange(-9, 6), 12, replace=False))
+    row = np.repeat(keys, rng.integers(1, 200, 12)).astype(np.int32)
+    s = torch.from_numpy(row[None]).to(dev)
+    top = (1 << 32) - 64
+    for cap in (1, 3, 127):
+        ends = rng.integers(-128, 128, (2, 64)).astype(np.int8)
+        got = count.make_table(32, dev)
+        got[:64] = torch.from_numpy(ends[0]).to(dev)
+        got[top:] = torch.from_numpy(ends[1]).to(dev)
+        want = ends.copy()
+        vals, runs = np.unique(row.view(np.uint32), return_counts=True)
+        for v, r in zip(vals.tolist(), runs.tolist()):
+            if v != 0xFFFFFFFF:
+                part, i = (0, v) if v < 64 else (1, v - top)
+                want[part, i] = np.int8(
+                    (int(want[part, i]) + min(r, cap) + 128) % 256 - 128)
+        n0 = cuda_kmer.run_capped_update.launches
+        count.run_capped_update([got], s, cap)
+        assert cuda_kmer.run_capped_update.launches == n0 + 1
+        assert np.array_equal(got[:64].cpu().numpy(), want[0])
+        assert np.array_equal(got[top:].cpu().numpy(), want[1])
+        assert int(torch.count_nonzero(got[64:top])) == 0
+        del got
 
 
 def test_count_step_on_the_card_never_waits_for_the_host(dev):
     """A count step raises nothing under sync debug mode "error": K4's
-    count epilogue, the sort and K5 a table, with and without the clip;
-    its tables equal the plain route's."""
+    count epilogue, the sort and one K5 launch for the three tables, with
+    and without the clip; its tables equal the plain route's."""
     k, cap = 24, 3
     rng = np.random.default_rng(8)
     masks, _ = encode.hasher_for(k, 3, seed=1)
@@ -459,14 +574,13 @@ def test_count_step_on_the_card_never_waits_for_the_host(dev):
                                    k, cap, clip=clip, kw=128)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert cuda_kmer.run_capped_update.launches == n0 + 6
+    assert cuda_kmer.run_capped_update.launches == n0 + 2  # one a batch
     for clip in (False, False, True):
         s = torch.sort(count.count_keys_plain(
             codes, lengths, accept, masks, k, 128), dim=1).values
-        for t, row in zip(plain, s):
-            count.run_capped_update_plain(t, row, cap)
-            if clip:
-                t.clamp_(max=cap)
+        count.run_capped_update_plain(plain, s, cap)
+        if clip:
+            count.clip_tables(plain, cap)
     for g, w in zip(on_card, plain):
         assert torch.equal(g, w)
 
