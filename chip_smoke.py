@@ -5,8 +5,8 @@
 
 Phases, each fatal on failure:
   1. environment: card name and power limit (nvidia-smi), torch, CUDA, nvcc;
-  2. build kernels K1/K2 (csrc/sw.cu), K3 (csrc/vote.cu) and K4/K5
-     (csrc/kmer.cu), one nvcc each, in parallel;
+  2. build kernels K1/K2 (csrc/sw.cu), K3 (csrc/vote.cu), K4/K5
+     (csrc/kmer.cu) and K6 (csrc/seed.cu), one nvcc each, in parallel;
   3. each kernel against its plain torch version on the card, exact integer
      equality, both timed with CUDA events and printed beside the kernel's
      bound (the larger of its bytes over 3.35 TB/s and its integer
@@ -26,12 +26,19 @@ Phases, each fatal on failure:
      peak-set and vote shapes, K4's count epilogue and K5 (the run-capped
      table update, one launch for the three key rows into three k=32
      tables, its time also given a row) on a 65,536-read batch at depth 5;
+     K6 (the align stage's seed prefilter) at bkp's batch (65,536 reads
+     of 150 bp padded to 192, the bitmap of a random 225 kbp
+     sub-reference) and direct mode's (16,384 reads, a random 100 Mbp
+     reference), its bound from the probes the function needs; the card's
+     clocks, temperature and power are printed before and after the
+     records;
   4. simulate the `big` fixture (100 genomes x 1 Mbp, 50 HGTs, depth 5,
      seed 42) in a temporary directory;
   5. `bkp` at k=32 through the port's CLI entry on the card: every kernel
      must launch, K4 in the scan, peak-set and vote stages, K4's count
      epilogue and K5 in the count stage, K5 once a count batch (for all
-     three tables); recall >= 0.90 and FDR <= 0.05
+     three tables), K6 twice an align batch (once a mate), all in the
+     align stage; recall >= 0.90 and FDR <= 0.05
      (+-50 bp); logs the (B, N) of K2's launches and the (B, M, N) of
      K1's;
   6. `event` on the output folder through the port's CLI, then the
@@ -39,8 +46,9 @@ Phases, each fatal on failure:
      (a mesh of one shard) and `detect_breakpoint` over a mesh of four
      shards that all sit on the card; each must write phase 5's
      interval.txt, bed and acc.csv byte for byte, K3 must launch once per
-     shard and vote batch and K1 at least as often as in phase 5, K4's
-     count epilogue and K5 never (the mesh count has its own step);
+     shard and vote batch, K1 at least as often as in phase 5, K6 as
+     often, K4's count epilogue and K5 never (the mesh count has its own
+     step);
   7. `bkp --refine_fq 1` at k=32 after 2% of the pairs were rewritten to a
      short insert with an adapter tail: every such pair comes out trimmed
      to its insert, the phase-5 gate holds and K1-K3 launch;
@@ -53,8 +61,8 @@ Phases, each fatal on failure:
  10. `kmer_stats` at k=24 on one mate of `big`: K4's count epilogue and
      K5 launch, K5 once a count batch;
  11. `tools.mapq_calibration.run` on the card: its report equals the JAX
-     package's (reports/mapq_calibration.json) key for key, and K1
-     launches;
+     package's (reports/mapq_calibration.json) key for key, and K1 and
+     K6 launch;
  12. `python -m localhgt_tpu_torch.bench --scale species20` as a child
      process: it exits 0 and its record is on the card ("gpu", the card's
      name), holds the fixture's 101,335 pairs, recall >= 0.90, FDR <=
@@ -63,11 +71,13 @@ Phases, each fatal on failure:
      depth 10, snp 0.01, seed 42) at k=32: the k-mer row and the
      direct-mode row (`bkp --use_kmer 0`) equal the JAX package's
      (reports/comparator.csv) in recall, fdr, f1 and n_called, the
-     reference engine's row reads skipped, K1 and K2 launch in the direct
-     row, whose K1 launches by (B, M, N) are logged.
+     reference engine's row reads skipped, K1, K2 and K6 launch in the
+     direct row, whose K1 launches by (B, M, N) are logged, K6 in the
+     k-mer row.
 Phase 5b runs between phases 6 and 7, on the fixture as simulated:
 `tools.loss_table` on `big` at k=32, whose summary must equal the JAX
-package's (reports/loss_table_big.json) key for key, with K1-K3 launched.
+package's (reports/loss_table_big.json) key for key, with K1-K3 and K6
+launched.
 Each phase's kernel launches are counted from 0 just before it and read
 just after. The last two lines of standard output are the kernels' JSON
 record and {"ok": true, "device": {...}}. Imports nothing of JAX and
@@ -173,6 +183,7 @@ K5_XLA = "localhgt_tpu/ops/count.py:242-248 (XLA, no Pallas kernel)"
 SECTOR_BYTES = 32  # the unit in which a byte of the table is read and written
 K4_STAGES = ("scan", "peakset", "vote")  # bkp's callers of K4
 K4_COUNT = ("count_keys", "run_capped_update")  # the count step's kernels
+SEED_SOURCE = "localhgt_tpu_torch/csrc/seed.cu"
 
 
 def log(msg: str) -> None:
@@ -183,6 +194,15 @@ def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def card_state() -> str:
+    """The card's SM and memory clocks, temperature and power draw now."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True)
     return res.stdout.strip().splitlines()[0]
 
 
@@ -212,6 +232,7 @@ def check_kernels(dev) -> list:
     rng = np.random.default_rng(2024)
     ops_per_s = int32_ops_per_s()
     out = []
+    log(f"[card] before phase 3's records: {card_state()}")
 
     def max_err(g, w) -> int:
         """Largest |g - w|, read only where the two differ (a k=32 table
@@ -326,6 +347,8 @@ def check_kernels(dev) -> list:
         out += sw_both(B, M, N, True, f"_bands_n{N}_tie_heavy", True, True)
     log(f"[kernels] band rows in {time.perf_counter() - t:.1f} s")
     out += kmer_rows(dev, rng, compare)
+    out += seed_rows(dev, compare)
+    log(f"[card] after phase 3's records: {card_state()}")
     return out
 
 
@@ -418,9 +441,40 @@ def kmer_rows(dev, rng, compare) -> list:
     return out
 
 
+def seed_rows(dev, compare) -> list:
+    """Phase 3's K6 rows: bkp's batch (the record) and direct mode's
+    (tune_seed.inputs, edge rows included), each bound by the work these
+    inputs need: the windows of each read up to its first hit, their
+    codes and the distinct bitmap sectors of their probes."""
+    import torch
+
+    from localhgt_tpu_torch import tune_seed
+    from localhgt_tpu_torch.ops import cuda_seed
+    from localhgt_tpu_torch.pipeline import align
+
+    out = []
+    for kind, sfx in (("bkp", ""), ("direct", "_direct")):
+        codes, lengths, bitmap = tune_seed.inputs(kind, dev)
+        work = tune_seed.prefilter_work(codes, lengths, bitmap)
+        log(f"[kernels] seed_prefilter{sfx} {tuple(codes.shape)}: "
+            f"{json.dumps(work)}")
+        rec = compare(
+            "seed_prefilter" + sfx, tune_seed.K6_XLA,
+            lambda: cuda_seed.seed_prefilter(codes, lengths, bitmap),
+            lambda: align.seed_prefilter_plain(codes, lengths, bitmap), 10,
+            work["bytes"], work["windows"] * tune_seed.K6_OPS_PER_WINDOW,
+            source=SEED_SOURCE)
+        rec["shape"] = list(codes.shape)
+        out.append(rec)
+        del codes, lengths, bitmap
+        torch.cuda.empty_cache()
+    return out
+
+
 def counters():
     """{record name: (wrapper, counter attribute)} of every kernel."""
-    from localhgt_tpu_torch.ops import cuda_kmer, cuda_sw, cuda_vote
+    from localhgt_tpu_torch.ops import cuda_kmer, cuda_seed, cuda_sw
+    from localhgt_tpu_torch.ops import cuda_vote
 
     return {"sw_align": (cuda_sw.sw_align, "launches"),
             "sw_score": (cuda_sw.sw_score, "launches"),
@@ -431,14 +485,16 @@ def counters():
             "sw_score_bands": (cuda_sw.sw_score, "band_launches"),
             "canonical_hashes": (cuda_kmer.canonical_hashes, "launches"),
             "count_keys": (cuda_kmer.count_keys, "launches"),
-            "run_capped_update": (cuda_kmer.run_capped_update, "launches")}
+            "run_capped_update": (cuda_kmer.run_capped_update, "launches"),
+            "seed_prefilter": (cuda_seed.seed_prefilter, "launches")}
 
 
 def counter_of(record: str) -> str:
     """The counter of a kernel record: the band records of every width
-    and input share their kernel's band counter."""
+    and input share their kernel's band counter, K6's direct-mode record
+    its kernel's counter."""
     head, bands, _ = record.partition("_bands")
-    return head + bands
+    return head + bands if bands else record.removesuffix("_direct")
 
 
 def drive(dev, fn):
@@ -446,11 +502,12 @@ def drive(dev, fn):
     (fn's result, {record name: launches}, wall seconds)."""
     import torch
 
-    from localhgt_tpu_torch.ops import cuda_kmer, cuda_sw
+    from localhgt_tpu_torch.ops import cuda_kmer, cuda_seed, cuda_sw
 
     for w, attr in counters().values():
         setattr(w, attr, 0)
     cuda_kmer.canonical_hashes.stages.clear()
+    cuda_seed.seed_prefilter.stages.clear()
     cuda_sw.sw_align.shapes.clear()
     cuda_sw.sw_score.shapes.clear()
     t = time.perf_counter()
@@ -477,7 +534,8 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
     that K1-K3 launched; returns the launch counts."""
     import torch
 
-    from localhgt_tpu_torch.ops import cuda_kmer, cuda_sw
+    from localhgt_tpu_torch.ops import cuda_kmer, cuda_seed, cuda_sw
+    from localhgt_tpu_torch.pipeline import extract
     from localhgt_tpu_torch.sim import evaluate
     from localhgt_tpu_torch.sim.simulate import read_truth
     from localhgt_tpu_torch.utils import formats, metrics
@@ -534,6 +592,18 @@ def run_bkp(dev, ref, fq1, fq2, truth, outdir, extra: list) -> dict:
                          f"{launches}; K4 by stage {stages}")
     launches["canonical_hashes_stages"] = stages
     check_k5_batches(tag, launches)
+    # the sub-reference (< 32 Mbp) keeps align's batches at the count's
+    # 65,536 reads, cached or read again
+    seed_stages = dict(cuda_seed.seed_prefilter.stages)
+    batches = -(-n_pairs // extract.COUNT_BATCH_READS)
+    log(f"{tag} K6 launches {launches['seed_prefilter']} for {batches} "
+        f"align batches of two mates; by stage {json.dumps(seed_stages)}")
+    if launches["seed_prefilter"] != 2 * batches or \
+            seed_stages.get("align") != 2 * batches:
+        raise SystemExit(f"{tag} K6 launched {launches['seed_prefilter']} "
+                         f"times ({seed_stages}), not twice for each of "
+                         f"{batches} align batches")
+    launches["seed_prefilter_stages"] = seed_stages
     if score.recall < MIN_RECALL or score.fdr > MAX_FDR:
         raise SystemExit(f"accuracy below the gate: recall {score.recall} "
                          f"(>= {MIN_RECALL}), FDR {score.fdr} (<= {MAX_FDR})")
@@ -607,6 +677,11 @@ def run_sharded(dev, ref, fq1, fq2, work: str, single: dict) -> None:
             raise SystemExit(
                 f"sharded bkp ({name}): K1 launched {launches['sw_align']} "
                 f"times, the single-device run {single['sw_align']}")
+        if launches["seed_prefilter"] != single["seed_prefilter"]:
+            raise SystemExit(
+                f"sharded bkp ({name}): K6 launched "
+                f"{launches['seed_prefilter']} times, the single-device run "
+                f"{single['seed_prefilter']}")
         shutil.rmtree(out)
 
 
@@ -824,7 +899,8 @@ def run_loss_table(dev, ref, fq1, fq2, truth) -> None:
     if rec["summary"] != want["summary"]:
         raise SystemExit(f"loss table summary differs from the JAX "
                          f"package's: {json.dumps(want['summary'])}")
-    if min(launches[n] for n in ("sw_align", "sw_score", "vote_state")) <= 0:
+    if min(launches[n] for n in ("sw_align", "sw_score", "vote_state",
+                                 "seed_prefilter")) <= 0:
         raise SystemExit(f"a kernel of the loss table never launched: "
                          f"{launches}")
 
@@ -842,8 +918,9 @@ def run_mapq(dev, work: str) -> None:
     if rep != want:
         raise SystemExit(f"mapq report differs from the JAX package's: "
                          f"{json.dumps(want)}")
-    if launches["sw_align"] <= 0:
-        raise SystemExit("K1 never launched in the mapq calibration")
+    if min(launches["sw_align"], launches["seed_prefilter"]) <= 0:
+        raise SystemExit(f"K1 or K6 never launched in the mapq calibration: "
+                         f"{launches}")
 
 
 def run_bench() -> None:
@@ -873,9 +950,9 @@ def run_bench() -> None:
         raise SystemExit(f"bench record out of its gate: {bad}")
 
 
-def run_comparator(dev, work: str) -> None:
+def run_comparator(dev, work: str) -> dict:
     """Phase 13: the comparator's k-mer and direct-mode rows against the
-    JAX package's."""
+    JAX package's; returns the direct row's launches."""
     from localhgt_tpu_torch.tools import comparator_run
 
     with open(COMPARATOR_REF) as f:
@@ -899,8 +976,13 @@ def run_comparator(dev, work: str) -> None:
         raise SystemExit("the reference engine's row ran: its source is "
                          "not in the repository")
     direct = rows["localhgt_tpu_torch_direct"]["launches"]
-    if min(direct["sw_align"], direct["sw_score"]) <= 0:
-        raise SystemExit(f"K1 or K2 never launched in direct mode: {direct}")
+    if min(direct["sw_align"], direct["sw_score"],
+           direct["seed_prefilter"]) <= 0:
+        raise SystemExit(f"K1, K2 or K6 never launched in direct mode: "
+                         f"{direct}")
+    if rows["localhgt_tpu_torch"]["launches"]["seed_prefilter"] <= 0:
+        raise SystemExit("K6 never launched in the comparator's k-mer row")
+    return direct
 
 
 def run_pipeline(dev, kernels: list) -> None:
@@ -937,11 +1019,16 @@ def run_pipeline(dev, kernels: list) -> None:
         run_kmer_stats(dev, fq1)
         run_mapq(dev, work)
         run_bench()
-        run_comparator(dev, work)
+        direct = run_comparator(dev, work)
         for rec in kernels:
             rec["launches"] = launches[counter_of(rec["name"])]
             if rec["name"] == "canonical_hashes":
                 rec["launches_by_stage"] = launches["canonical_hashes_stages"]
+            elif rec["name"] == "seed_prefilter":
+                rec["launches_by_stage"] = launches["seed_prefilter_stages"]
+            elif rec["name"] == "seed_prefilter_direct":
+                # main-path launches above; direct mode's own, phase 13
+                rec["launches_direct_mode"] = direct["seed_prefilter"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -969,11 +1056,11 @@ def main() -> int:
     log(f"[env] {nvcc.stdout.strip().splitlines()[-1]}")
     t = time.perf_counter()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         for fut in [pool.submit(_build.build, n)
-                    for n in ("sw", "vote", "kmer")]:
+                    for n in ("sw", "vote", "kmer", "seed")]:
             fut.result()
-    log(f"[build] K1/K2 sw.cu + K3 vote.cu + K4/K5 kmer.cu in "
+    log(f"[build] K1/K2 sw.cu + K3 vote.cu + K4/K5 kmer.cu + K6 seed.cu in "
         f"{time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()

@@ -4,7 +4,8 @@ Port of localhgt_tpu/pipeline/align.py. The dataclasses and host helpers
 (sub-reference, seed index, candidate grouping, mapq model) are copied from
 the JAX package line for line; `align_batch` runs its Smith-Waterman
 extension in kernel K1, and the seed prefilter, a 2^27-word prefix bitmap
-plus a forward/reverse-complement probe, is kept on the device.
+plus a forward/reverse-complement probe, is kept on the device: kernel K6
+on a card.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from localhgt_tpu_torch.config import AlignConfig
 from localhgt_tpu_torch.io import fasta, native
+from localhgt_tpu_torch.ops import cuda_seed
 from localhgt_tpu_torch.ops import sw as swmod
 from localhgt_tpu_torch.ops.coder import COMPLEMENT
 from localhgt_tpu_torch.utils import metrics
@@ -293,7 +295,7 @@ def _bwa_mapq(p_score, comp_score, sub_n, aln_len, cfg) -> np.ndarray:
     return np.where(sub >= score, 0, mapq).astype(np.int16)
 
 
-BITMAP_WORDS = 1 << 27  # 2^32 prefix bits
+BITMAP_WORDS = cuda_seed.BITMAP_WORDS  # 2^32 prefix bits
 
 
 
@@ -367,7 +369,28 @@ def seed_prefilter_device(codes: torch.Tensor, lengths: torch.Tensor,
     """bool [B] on the device: True iff the read has a window whose
     PREFILTER_LEN-base hash, forward or reverse-complement, is the prefix
     of some indexed seed. Exact membership, so no read the host seeding
-    could seed is dropped."""
+    could seed is dropped. Kernel K6 on a CUDA device, seed_prefilter_plain
+    on the CPU."""
+    if codes.device.type == "cuda":
+        return cuda_seed.seed_prefilter(codes, lengths, bitmap)
+    if codes.device.type != "cpu":
+        raise ValueError(f"seed_prefilter_device: unsupported device "
+                         f"{codes.device}")
+    return seed_prefilter_plain(codes, lengths, bitmap)
+
+
+def seed_prefilter_plain(codes: torch.Tensor, lengths: torch.Tensor,
+                         bitmap: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K6 on any device: the JAX package's jitted
+    `pf`, one int64 window hash a step over the PREFILTER_LEN bases."""
+    hf, hr, ok = prefilter_windows(codes, lengths)
+    return (ok & (bitmap_bit(bitmap, hf) | bitmap_bit(bitmap, hr))).any(dim=1)
+
+
+def prefilter_windows(codes: torch.Tensor, lengths: torch.Tensor):
+    """(hf, hr, ok) [B, L - PREFILTER_LEN + 1]: each window start's forward
+    and reverse-complement hash (int64) and whether the window lies in the
+    read and holds bases only."""
     pl = PREFILTER_LEN
     B, L = codes.shape
     n = L - pl + 1
@@ -382,13 +405,13 @@ def seed_prefilter_device(codes: torch.Tensor, lengths: torch.Tensor,
         bad += (col >= 4).to(torch.int32)
     inwin = (torch.arange(n, device=codes.device)[None, :]
              <= lengths[:, None].long() - pl)
-    ok = (bad == 0) & inwin
+    return hf, hr, (bad == 0) & inwin
 
-    def member(h):
-        w = bitmap[h >> 5].to(torch.int64)
-        return ((w >> (h & 31)) & 1) != 0
 
-    return (ok & (member(hf) | member(hr))).any(dim=1)
+def bitmap_bit(bitmap: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Whether hash h (int64) has its bit set in the prefix bitmap."""
+    w = bitmap[h >> 5].to(torch.int64)
+    return ((w >> (h & 31)) & 1) != 0
 
 
 def align_batch(subref: SubRef, index: SeedIndex, codes: np.ndarray,

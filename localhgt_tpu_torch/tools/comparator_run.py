@@ -21,7 +21,7 @@ comparator flow, paper_results/evaluation.py + run_lemon.sh). Rows:
 
 Each `bkp` row: recall / FDR / F1 at +-50 bp, the number of calls, wall
 seconds, host CPU seconds and max RSS, and (in the JSON only) the launches
-of kernels K1-K3 and K1's launches by (B, M, N) during the row. The
+of kernels K1-K3 and K6 and K1's launches by (B, M, N) during the row. The
 fixture (default: 20 genomes x 150 kbp, 10 HGTs, depth 10, snp 0.01, seed
 42) and every output go under `workdir` (default: an `lht_comp_torch`
 directory under the system's temporary directory), comparator.csv among
@@ -45,17 +45,18 @@ COLUMNS = ["tool", "stage", "recall", "fdr", "f1", "n_called",
 
 
 def _launches() -> dict:
-    from localhgt_tpu_torch.ops import cuda_sw, cuda_vote
+    from localhgt_tpu_torch.ops import cuda_seed, cuda_sw, cuda_vote
 
     return {"sw_align": cuda_sw.sw_align.launches,
             "sw_score": cuda_sw.sw_score.launches,
             "vote_state": cuda_vote.vote_state.launches,
+            "seed_prefilter": cuda_seed.seed_prefilter.launches,
             "k1_shapes": dict(cuda_sw.sw_align.shapes)}
 
 
 def _launch_delta(before: dict, after: dict) -> dict:
     out = {n: after[n] - before[n]
-           for n in ("sw_align", "sw_score", "vote_state")}
+           for n in ("sw_align", "sw_score", "vote_state", "seed_prefilter")}
     shapes = {s: n - before["k1_shapes"].get(s, 0)
               for s, n in after["k1_shapes"].items()}
     out["k1_shapes"] = [[*s, n] for s, n in sorted(shapes.items()) if n]

@@ -84,7 +84,7 @@ def test_comparator_csv_in_the_work_directory(port_run):
     # on the CPU the wrappers run their plain versions: no kernel launches
     direct = out["rows"]["localhgt_tpu_torch_direct"]["launches"]
     assert direct == {"sw_align": 0, "sw_score": 0, "vote_state": 0,
-                      "k1_shapes": []}
+                      "seed_prefilter": 0, "k1_shapes": []}
     json.dumps(out)
 
 

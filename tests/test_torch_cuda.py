@@ -1,4 +1,4 @@
-"""Kernels K1 to K5 on the card against their plain torch versions.
+"""Kernels K1 to K6 on the card against their plain torch versions.
 
 These tests need an NVIDIA GPU with nvcc: they carry the `cuda` marker and
 skip without a card. Run them on one with
@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from localhgt_tpu_torch.ops import count, cuda_kmer, cuda_sw, cuda_vote
-from localhgt_tpu_torch.ops import encode
+from localhgt_tpu_torch import tune_seed
+from localhgt_tpu_torch.ops import count, cuda_kmer, cuda_seed, cuda_sw
+from localhgt_tpu_torch.ops import cuda_vote, encode
+from localhgt_tpu_torch.pipeline import align
 
 pytestmark = pytest.mark.cuda
 
@@ -583,6 +585,96 @@ def test_count_step_on_the_card_never_waits_for_the_host(dev):
             count.clip_tables(plain, cap)
     for g, w in zip(on_card, plain):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind", list(tune_seed.SHAPES))
+def test_seed_prefilter_kernel_matches_plain_at_chip_smoke_shapes(dev, kind):
+    """K6 at bkp's batch and direct mode's (chip_smoke.py's rows), one
+    launch each, its edge rows as tune_seed.edge_rows builds them (in
+    direct mode's dense bitmap rows 7 and 8 may hit elsewhere)."""
+    codes, lengths, bitmap = tune_seed.inputs(kind, dev)
+    n0 = cuda_seed.seed_prefilter.launches
+    got = align.seed_prefilter_device(codes, lengths, bitmap)
+    assert cuda_seed.seed_prefilter.launches == n0 + 1
+    want = align.seed_prefilter_plain(codes, lengths, bitmap)
+    assert torch.equal(got, want)
+    edge = got[:12].tolist()
+    assert [edge[i] for i in (0, 1, 9, 10)] == [False] * 4
+    assert [edge[i] for i in (2, 3, 4, 5, 6, 11)] == [True] * 6
+    if kind == "bkp":
+        assert edge[7:9] == [False, False]
+    assert 0 < int(got.sum()) < got.numel()
+
+
+@pytest.mark.parametrize("L", [15, 16, 17, 31, 32, 33, 47, 48, 63, 64, 65,
+                               150, 191, 192, 193, 300])
+def test_seed_prefilter_kernel_on_edge_widths(dev, L):
+    """Every width about a tile's edge, lengths 0 to past L, N codes and
+    planted windows of bit-31 and last-word prefixes on both strands."""
+    rng = np.random.default_rng(L)
+    B = 777
+    codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    codes[rng.random((B, L)) < 0.02] = 4
+    lengths = rng.integers(0, L + 8, B).astype(np.int32)
+    pre = [*tune_seed.EDGE_PREFIXES]
+    for b in np.flatnonzero(rng.random(B) < 0.3):
+        if L >= 16:
+            at = int(rng.integers(0, L - 15))
+            codes[b, at:at + 16] = tune_seed.prefix_bases(
+                pre[b % 3], bool(b % 2))
+    bitmap = tune_seed.bitmap_of(pre, dev)
+    c, ln = torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev)
+    got = cuda_seed.seed_prefilter(c, ln, bitmap)
+    assert torch.equal(got, align.seed_prefilter_plain(c, ln, bitmap))
+    # a view of a wider batch: the wrapper reads it contiguous
+    wide = torch.full((B, L + 5), 4, dtype=torch.uint8, device=dev)
+    wide[:, :L] = c
+    assert torch.equal(cuda_seed.seed_prefilter(wide[:, :L], ln, bitmap), got)
+
+
+def test_seed_prefilter_kernel_on_empty_and_full_bitmaps(dev):
+    codes, lengths, _ = tune_seed.inputs("bkp", dev, shape=(1000, 192),
+                                         ref_bp=5_000)
+    empty = torch.zeros(cuda_seed.BITMAP_WORDS, dtype=torch.int32,
+                        device=dev)
+    assert not cuda_seed.seed_prefilter(codes, lengths, empty).any()
+    full = torch.full_like(empty, -1)
+    got = cuda_seed.seed_prefilter(codes, lengths, full)
+    assert torch.equal(got, align.seed_prefilter_plain(codes, lengths, full))
+    assert got[2:7].all() and not got[:2].any()
+    none = codes[:0]
+    assert cuda_seed.seed_prefilter(none, lengths[:0], empty).shape == (0,)
+
+
+def test_seed_prefilter_kernel_raises_on_what_it_does_not_take(dev):
+    codes, lengths, bitmap = tune_seed.inputs("bkp", dev, shape=(64, 192),
+                                              ref_bp=5_000)
+    with pytest.raises(TypeError, match="int32 lengths"):
+        cuda_seed.seed_prefilter(codes, lengths.long(), bitmap)
+    with pytest.raises(TypeError, match="uint8 codes"):
+        cuda_seed.seed_prefilter(codes.int(), lengths, bitmap)
+    with pytest.raises(TypeError, match="bitmap"):
+        cuda_seed.seed_prefilter(codes, lengths, bitmap[:-1])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cuda_seed.seed_prefilter(codes, lengths.cpu(), bitmap)
+
+
+def test_seed_prefilter_on_the_card_never_waits_for_the_host(dev):
+    """align.seed_prefilter_device raises nothing under sync debug mode
+    "error": K6 is one launch with no host sync."""
+    codes, lengths, bitmap = tune_seed.inputs("bkp", dev, shape=(4096, 192),
+                                              ref_bp=20_000)
+    align.seed_prefilter_device(codes, lengths, bitmap)  # builds seed.cu
+    torch.cuda.synchronize(dev)
+    n0 = cuda_seed.seed_prefilter.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = align.seed_prefilter_device(codes, lengths, bitmap)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cuda_seed.seed_prefilter.launches == n0 + 1
+    assert torch.equal(got, align.seed_prefilter_plain(codes, lengths,
+                                                       bitmap))
 
 
 def _card_mesh(n_shards=4):
