@@ -1,0 +1,12 @@
+"""K2 (`sw_score`, csrc/sw.cu) over the window: the bound of every launch
+(hgtbench/roofline.py, from the shapes `cuda_sw.sw_score.shapes` counted)
+over the kernel's device time in the trace, in %."""
+
+from hgtbench import roofline
+
+
+def read(ctx):
+    if ctx["trace"] is None:
+        return None
+    return roofline.share_pct("sw_score", ctx["sw_shapes"]["sw_score"],
+                              ctx["trace"]["by_name"])

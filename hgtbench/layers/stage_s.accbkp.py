@@ -1,0 +1,8 @@
+"""Mean wall of the port's `accbkp` stage span (utils/metrics.stage) over
+the window's samples, in seconds."""
+
+from hgtbench.readers import stage_mean
+
+
+def read(ctx):
+    return stage_mean(ctx, "accbkp")
