@@ -66,7 +66,9 @@ Phases, each fatal on failure:
  12. `python -m localhgt_tpu_torch.bench --scale species20` as a child
      process: it exits 0 and its record is on the card ("gpu", the card's
      name), holds the fixture's 101,335 pairs, recall >= 0.90, FDR <=
-     0.05, all seven stage walls and count_step_gbps_device;
+     0.05, all seven stage walls, and the count stage's four spans
+     (`count.parse`, `.pad`, `.upload`, `.step`) in its counters, their
+     sum within the count wall;
  13. `tools.comparator_run.run` on its default fixture (20 x 150 kbp,
      depth 10, snp 0.01, seed 42) at k=32: the k-mer row and the
      direct-mode row (`bkp --use_kmer 0`) equal the JAX package's
@@ -120,6 +122,7 @@ BAND_SHAPES = ((64, 800, 4097), (64, 800, 6000), (64, 800, 8192),
 BENCH_SCALE, BENCH_PAIRS = "species20", 101_335
 BENCH_TIMEOUT_S = 300
 STAGES = ("count", "scan", "peakset", "vote", "align", "rawbkp", "accbkp")
+COUNT_SPANS = ("parse", "pad", "upload", "step")  # count.<part> spans
 # the JAX package's own results on this fixture at k=32 (BENCH_r05.json)
 JAX_REFERENCE = {"intervals": 188, "subref_bp": 224_902, "final_bkps": 92,
                  "recall": 0.92}
@@ -938,13 +941,18 @@ def run_bench() -> None:
                          f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
     rec = json.loads(lines[-1])
     log(f"[bench] {BENCH_SCALE} in {wall:.1f} s: {lines[-1]}")
+    counters = rec.get("counters", {})
+    spans = [counters.get(f"count.{p}_s") for p in COUNT_SPANS]
+    # the record rounds each counter to 0.1 s
+    count_spans_ok = None not in spans and sum(spans) <= rec.get(
+        "stage_walls", {}).get("count", 0) + 0.05 * len(spans)
     bad = [f"{key} = {rec.get(key)!r}" for key, ok in (
         ("platform", rec.get("platform") == "gpu"),
         ("n_pairs", rec.get("n_pairs") == BENCH_PAIRS),
         ("recall", rec.get("recall", 0) >= MIN_RECALL),
         ("fdr", rec.get("fdr", 1) <= MAX_FDR),
         ("stage_walls", set(STAGES) <= set(rec.get("stage_walls", ()))),
-        ("count_step_gbps_device", rec.get("count_step_gbps_device", 0) > 0),
+        ("counters", count_spans_ok),
         ("card", bool(rec.get("card")))) if not ok]
     if bad:
         raise SystemExit(f"bench record out of its gate: {bad}")

@@ -442,77 +442,79 @@ def align_batch(subref: SubRef, index: SeedIndex, codes: np.ndarray,
     C = cfg.max_candidates
 
     # --- seed lookup on both strands (the C++ library of io/csrc) ---
-    hits = native.seed_hits(
-        codes, lengths, index.sorted_hash, index.sorted_pos,
-        cfg.seed_len, cfg.seed_stride, 32, threads=threads,
-    )
-    if hits is None:
-        raise RuntimeError(
-            "seed lookup needs localhgt_tpu_torch/io/csrc, built with g++ at "
-            "first use; the build failed")
-    hr, ho, hp, hs = hits
-    cand = []
-    for strand in (0, 1):
-        m = hs == strand
-        cand.append(
-            _group_candidates(
-                hr[m].astype(np.int64), hp[m] - ho[m],
-                ho[m].astype(np.int64), B, gap=cfg.window_pad,
-                max_candidates=C, min_votes=cfg.min_seed_votes,
-            )
-            + (strand,)
+    with metrics.span("align.seed"):
+        hits = native.seed_hits(
+            codes, lengths, index.sorted_hash, index.sorted_pos,
+            cfg.seed_len, cfg.seed_stride, 32, threads=threads,
         )
+        if hits is None:
+            raise RuntimeError(
+                "seed lookup needs localhgt_tpu_torch/io/csrc, built with g++ "
+                "at first use; the build failed")
+        hr, ho, hp, hs = hits
+        cand = []
+        for strand in (0, 1):
+            m = hs == strand
+            cand.append(
+                _group_candidates(
+                    hr[m].astype(np.int64), hp[m] - ho[m],
+                    ho[m].astype(np.int64), B, gap=cfg.window_pad,
+                    max_candidates=C, min_votes=cfg.min_seed_votes,
+                )
+                + (strand,)
+            )
 
-    # merge strands: 2C candidates per read
-    diag_all = np.concatenate([c[0] for c in cand], axis=1)
-    votes_all = np.concatenate([c[1] for c in cand], axis=1)
-    ok_all = np.concatenate([c[4] for c in cand], axis=1)
-    strand_all = np.concatenate(
-        [np.full((B, C), c[5], np.int8) for c in cand], axis=1
-    )
-    # keep top-C by votes across strands
-    order = np.argsort(-np.where(ok_all, votes_all, -1), axis=1,
-                       kind="stable")[:, :C]
-    rows = np.arange(B)[:, None]
-    diag_c = diag_all[rows, order]
-    ok_c = ok_all[rows, order]
-    strand_c = strand_all[rows, order]
+        # merge strands: 2C candidates per read
+        diag_all = np.concatenate([c[0] for c in cand], axis=1)
+        votes_all = np.concatenate([c[1] for c in cand], axis=1)
+        ok_all = np.concatenate([c[4] for c in cand], axis=1)
+        strand_all = np.concatenate(
+            [np.full((B, C), c[5], np.int8) for c in cand], axis=1
+        )
+        # keep top-C by votes across strands
+        order = np.argsort(-np.where(ok_all, votes_all, -1), axis=1,
+                           kind="stable")[:, :C]
+        rows = np.arange(B)[:, None]
+        diag_c = diag_all[rows, order]
+        ok_c = ok_all[rows, order]
+        strand_c = strand_all[rows, order]
 
     # --- batched extension: only real candidates reach kernel K1 ---
-    W = int(L + 2 * cfg.window_pad)
-    win_start = diag_c - cfg.window_pad
-    np.clip(win_start, 0, max(len(subref.codes) - W, 0), out=win_start)
-    sel = np.flatnonzero(ok_c.reshape(-1))
-    score = np.zeros((B, C), np.int32)
-    qs = np.zeros((B, C), np.int32)
-    qe = np.zeros((B, C), np.int32)
-    rs = np.zeros((B, C), np.int64)
-    re_ = np.zeros((B, C), np.int64)
-    if len(sel) and len(subref.codes):
-        n_sel = len(sel)
-        b_idx = sel // C
-        c_idx = sel % C
-        ws = win_start.reshape(-1)[sel]
-        gather = ws[:, None] + np.arange(W)[None, :]
-        np.clip(gather, 0, len(subref.codes) - 1, out=gather)
-        ref_w = subref.codes[gather]
-        strands = strand_c.reshape(-1)[sel]
-        q_sel = codes[b_idx]
-        rows1 = np.flatnonzero(strands == 1)
-        if len(rows1):  # revcomp only the selected reverse-strand rows
-            q_sel[rows1] = _revcomp_batch(
-                codes[b_idx[rows1]], lengths[b_idx[rows1]]
+    with metrics.span("align.sw"):
+        W = int(L + 2 * cfg.window_pad)
+        win_start = diag_c - cfg.window_pad
+        np.clip(win_start, 0, max(len(subref.codes) - W, 0), out=win_start)
+        sel = np.flatnonzero(ok_c.reshape(-1))
+        score = np.zeros((B, C), np.int32)
+        qs = np.zeros((B, C), np.int32)
+        qe = np.zeros((B, C), np.int32)
+        rs = np.zeros((B, C), np.int64)
+        re_ = np.zeros((B, C), np.int64)
+        if len(sel) and len(subref.codes):
+            n_sel = len(sel)
+            b_idx = sel // C
+            c_idx = sel % C
+            ws = win_start.reshape(-1)[sel]
+            gather = ws[:, None] + np.arange(W)[None, :]
+            np.clip(gather, 0, len(subref.codes) - 1, out=gather)
+            ref_w = subref.codes[gather]
+            strands = strand_c.reshape(-1)[sel]
+            q_sel = codes[b_idx]
+            rows1 = np.flatnonzero(strands == 1)
+            if len(rows1):  # revcomp only the selected reverse-strand rows
+                q_sel[rows1] = _revcomp_batch(
+                    codes[b_idx[rows1]], lengths[b_idx[rows1]]
+                )
+            out = swmod.sw_align_tiled(
+                q_sel, ref_w, device, mesh=mesh,
+                match=cfg.match, mismatch=cfg.mismatch,
+                gap_open=cfg.gap_open, gap_ext=cfg.gap_extend,
             )
-        out = swmod.sw_align_tiled(
-            q_sel, ref_w, device, mesh=mesh,
-            match=cfg.match, mismatch=cfg.mismatch,
-            gap_open=cfg.gap_open, gap_ext=cfg.gap_extend,
-        )
-        score[b_idx, c_idx] = out["score"][:n_sel]
-        qs[b_idx, c_idx] = out["qstart"][:n_sel]
-        qe[b_idx, c_idx] = out["qend"][:n_sel]
-        rs[b_idx, c_idx] = out["rstart"][:n_sel] + ws
-        re_[b_idx, c_idx] = out["rend"][:n_sel] + ws
+            score[b_idx, c_idx] = out["score"][:n_sel]
+            qs[b_idx, c_idx] = out["qstart"][:n_sel]
+            qe[b_idx, c_idx] = out["qend"][:n_sel]
+            rs[b_idx, c_idx] = out["rstart"][:n_sel] + ws
+            re_[b_idx, c_idx] = out["rend"][:n_sel] + ws
 
     # --- per-candidate segment validity (one reference sequence each) ---
     if len(subref.seg_off):

@@ -117,7 +117,8 @@ def align_reads(fq1: str, fq2: str, subref: align.SubRef,
 
     row_base = 0
     width = None
-    for c1d, l1d, c1n, l1n, c2d, l2d, c2n, l2n, n in raw_batches():
+    for c1d, l1d, c1n, l1n, c2d, l2d, c2n, l2n, n in metrics.spanned(
+            "align.parse", raw_batches()):
         width = c1n.shape[1]
         ids = np.arange(row_base, row_base + n, dtype=np.int64)
         batch_t = {}
@@ -190,7 +191,8 @@ def detect_breakpoint(
                  st.pairs_out, st.pairs_in, st.adapter_trimmed)
         fq1, fq2 = r1, r2
 
-    contigs = reference.build(ref_path)
+    with metrics.span("reference"):
+        contigs = reference.build(ref_path)
     log.info("reference: %d contigs, %d bp", contigs.n, len(contigs.codes))
 
     if mesh in ("auto", "force"):
@@ -211,12 +213,13 @@ def detect_breakpoint(
         else:
             res = extract.extract(fq1, fq2, contigs, cfg, device)
         intervals, cache = res.intervals, res.cache
-        with open(os.path.join(outdir, f"{sample}.interval.txt"), "w") as f:
-            for cid, s, e in intervals:
-                f.write(f"{cid}\t{s}\t{e}\n")
-        with open(os.path.join(outdir, f"{sample}.interval.txt.bed"),
-                  "w") as f:
-            f.write("\n".join(res.bed) + ("\n" if res.bed else ""))
+        with metrics.span("write"):
+            iv_path = os.path.join(outdir, f"{sample}.interval.txt")
+            with open(iv_path, "w") as f:
+                for cid, s, e in intervals:
+                    f.write(f"{cid}\t{s}\t{e}\n")
+            with open(iv_path + ".bed", "w") as f:
+                f.write("\n".join(res.bed) + ("\n" if res.bed else ""))
         del res  # frees the peak map before alignment
         log.info("extraction: %d intervals (%.1fs)", len(intervals),
                  time.time() - t0)
@@ -225,16 +228,19 @@ def detect_breakpoint(
             (cid, 1, contigs.length_of(cid)) for cid in range(1, contigs.n + 1)
         ]
 
-    subref = align.build_subref(contigs, intervals)
+    with metrics.span("subref"):
+        subref = align.build_subref(contigs, intervals)
     metrics.add("n_intervals", len(intervals))
     metrics.add("subref_bp", len(subref.codes))
     log.info("sub-reference: %d segments, %d bp", len(subref.seg_off),
              len(subref.codes))
     if len(subref.codes) == 0:
         acc_path = os.path.join(outdir, f"{sample}.acc.csv")
-        formats.write_acc_csv(acc_path, [], contigs, 0, 0)
+        with metrics.span("write"):
+            formats.write_acc_csv(acc_path, [], contigs, 0, 0)
         return acc_path
-    index = align.SeedIndex.build(subref, cfg.align.seed_len)
+    with metrics.span("seed_index"):
+        index = align.SeedIndex.build(subref, cfg.align.seed_len)
 
     # --- align all read pairs ---
     t1 = time.time()
@@ -266,8 +272,9 @@ def detect_breakpoint(
     log.info("final breakpoints: %d", len(accs))
 
     acc_path = os.path.join(outdir, f"{sample}.acc.csv")
-    formats.write_acc_csv(acc_path, accs, contigs, 2 * n_pairs,
-                          ins.insert_size)
+    with metrics.span("write"):
+        formats.write_acc_csv(acc_path, accs, contigs, 2 * n_pairs,
+                              ins.insert_size)
     log.info("total %.1fs -> %s", time.time() - t0, acc_path)
     return acc_path
 

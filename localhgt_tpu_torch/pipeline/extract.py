@@ -126,11 +126,10 @@ def count_kmers(fq1, fq2, masks, cfg: Config, device):
     finished tables persist in the JAX layout and a later run with the
     same inputs resumes from them (the cache is then None).
 
-    Series, as the JAX package records them: `count_batch_dispatch_s`,
+    Series, as the JAX package records it: `count_batch_dispatch_s`,
     one sample a batch (upload, step, cache and clip, after the host
-    parse); on a CUDA device also `count_step_device_s`, the synced step
-    of every 16th batch, the basis of metrics.derived's
-    count_step_gbps_device."""
+    parse). Spans (utils/metrics.span) split the host's time a batch:
+    `count.parse`, `count.pad`, `count.upload`, `count.step`."""
     ckpt = count_ckpt_path(fq1, fq2, cfg) if cfg.count_ckpt else None
     k = cfg.kmer.k
     if ckpt and os.path.isfile(ckpt):
@@ -144,7 +143,6 @@ def count_kmers(fq1, fq2, masks, cfg: Config, device):
 
     count.check_least_depth(k, cfg.kmer.least_depth)
     tables = [count.make_table(k, device) for _ in range(cfg.kmer.coder_num)]
-    on_card = torch.device(device).type == "cuda"
     ratio = fastq.downsample_ratio(cfg.kmer.sample, fq1)
     n_pairs = 0
     width = None
@@ -154,32 +152,25 @@ def count_kmers(fq1, fq2, masks, cfg: Config, device):
     cache = {fq1: [], fq2: []}
     cache_bytes = 0
     for path in (fq1, fq2):
-        for b in fastq.iter_fastq_batches(
-                path, batch_reads=COUNT_BATCH_READS, threads=cfg.threads):
+        for b in metrics.spanned("count.parse", fastq.iter_fastq_batches(
+                path, batch_reads=COUNT_BATCH_READS, threads=cfg.threads)):
             if width is None:
                 width = _batch_width(b.codes.shape[1])
-            acc = fastq.accept_mask(b.start_ordinal, b.n, ratio,
-                                    cfg.kmer.seed, cfg.kmer.strict_sampling)
-            codes, lengths, acc = _pad_read_batch(b, acc, width)
+            with metrics.span("count.pad"):
+                acc = fastq.accept_mask(b.start_ordinal, b.n, ratio,
+                                        cfg.kmer.seed,
+                                        cfg.kmer.strict_sampling)
+                codes, lengths, acc = _pad_read_batch(b, acc, width)
             t1 = time.perf_counter()
-            codes_d = torch.from_numpy(codes).to(device)
-            lengths_d = torch.from_numpy(lengths).to(device)
-            acc_d = torch.from_numpy(acc).to(device)
+            with metrics.span("count.upload"):
+                codes_d = torch.from_numpy(codes).to(device)
+                lengths_d = torch.from_numpy(lengths).to(device)
+                acc_d = torch.from_numpy(acc).to(device)
             lmax = int(b.lengths.max()) if b.n else 0
-            # the device step's own time on every 16th batch (batch 0 holds
-            # the first launches): drain the queue, step, drain again. Only
-            # a card records it, so no CPU time is kept under its name
-            sample_step = on_card and nb % 16 == 1
-            if sample_step:
-                torch.cuda.synchronize(device)
-                t_sync = time.perf_counter()
-            count.count_reads_step(
-                tables, codes_d, lengths_d, acc_d, masks, k,
-                cfg.kmer.least_depth, clip=False, kw=_kw(width, lmax, k))
-            if sample_step:
-                torch.cuda.synchronize(device)
-                metrics.record("count_step_device_s",
-                               time.perf_counter() - t_sync)
+            with metrics.span("count.step"):
+                count.count_reads_step(
+                    tables, codes_d, lengths_d, acc_d, masks, k,
+                    cfg.kmer.least_depth, clip=False, kw=_kw(width, lmax, k))
             if cache is not None:
                 cache_bytes += codes.nbytes + lengths.nbytes + acc.nbytes
                 if cache_bytes <= CODE_CACHE_DEVICE_LIMIT:
@@ -256,19 +247,20 @@ def scan_reference(tables, contigs: fasta.Contigs, masks, cfg: Config,
     state = {"total": 0, "stop": False}
 
     def finalize(cid, good, peak):
-        ivs = scan.good_intervals(good, cfg.scan.window,
-                                  pad=cfg.scan.good_pad)
-        pos, mem, gid = scan.peaks_in_intervals(
-            peak, ivs, cfg.scan.merge_close_peak)
-        # --max_peak capacity (Peaks::init cpp:229-237): truncate
-        if state["total"] + len(pos) > cfg.scan.max_peak:
-            keep = max(0, cfg.scan.max_peak - state["total"])
-            sel = gid < keep
-            pos, mem, gid = pos[:keep], mem[sel], gid[sel]
-            log.warning(
-                "Too many peaks (>%d)! Reduce the sampling size, or appoint "
-                "a larger max_peak_num (see --max_peak). Truncating.",
-                cfg.scan.max_peak)
+        with metrics.span("scan.finalize"):
+            ivs = scan.good_intervals(good, cfg.scan.window,
+                                      pad=cfg.scan.good_pad)
+            pos, mem, gid = scan.peaks_in_intervals(
+                peak, ivs, cfg.scan.merge_close_peak)
+            # --max_peak capacity (Peaks::init cpp:229-237): truncate
+            if state["total"] + len(pos) > cfg.scan.max_peak:
+                keep = max(0, cfg.scan.max_peak - state["total"])
+                sel = gid < keep
+                pos, mem, gid = pos[:keep], mem[sel], gid[sel]
+                log.warning(
+                    "Too many peaks (>%d)! Reduce the sampling size, or "
+                    "appoint a larger max_peak_num (see --max_peak). "
+                    "Truncating.", cfg.scan.max_peak)
         state["total"] += len(pos)
         per_contig.append((cid, pos, mem, gid))
         if state["total"] >= cfg.scan.max_peak:
@@ -280,29 +272,32 @@ def scan_reference(tables, contigs: fasta.Contigs, masks, cfg: Config,
         if state["stop"]:
             break
         grp = jobs[base : base + SCAN_ROWS]
-        buf = np.full((SCAN_ROWS, chunk), 4, np.uint8)
-        tl = np.zeros(SCAN_ROWS, np.int64)
-        for r, (cid, s, e, cs, n_live) in enumerate(grp):
-            codes = contigs.contig_codes(cid)
-            buf[r, : min(chunk, len(codes) - cs)] = codes[cs : cs + chunk]
-            tl[r] = n_live
-        g, p = scan_rows(tables, torch.from_numpy(buf).to(device),
-                         torch.from_numpy(tl).to(device), masks, k,
-                         cfg.scan, cfg.kmer.least_depth)
-        g = g.cpu().numpy()
-        p = p.cpu().numpy()
+        with metrics.span("scan.assemble"):
+            buf = np.full((SCAN_ROWS, chunk), 4, np.uint8)
+            tl = np.zeros(SCAN_ROWS, np.int64)
+            for r, (cid, s, e, cs, n_live) in enumerate(grp):
+                codes = contigs.contig_codes(cid)
+                buf[r, : min(chunk, len(codes) - cs)] = codes[cs : cs + chunk]
+                tl[r] = n_live
+        with metrics.span("scan.device"):
+            g, p = scan_rows(tables, torch.from_numpy(buf).to(device),
+                             torch.from_numpy(tl).to(device), masks, k,
+                             cfg.scan, cfg.kmer.least_depth)
+            g = g.cpu().numpy()
+            p = p.cpu().numpy()
         for r, (cid, s, e, cs, _) in enumerate(grp):
             if cid != cur:
                 if cur is not None:
-                    finalize(cur, good, peak)
+                    finalize(cur, good, peak)  # its own span, not stitch's
                     if state["stop"]:
                         break
                 cur = cid
                 L = contigs.length_of(cid)
                 good = np.zeros(L, bool)
                 peak = np.zeros(L, bool)
-            good[s:e] = g[r, s - cs : s - cs + (e - s)]
-            peak[s:e] = p[r, s - cs : s - cs + (e - s)]
+            with metrics.span("scan.stitch"):
+                good[s:e] = g[r, s - cs : s - cs + (e - s)]
+                peak[s:e] = p[r, s - cs : s - cs + (e - s)]
     if cur is not None and not state["stop"]:
         finalize(cur, good, peak)
     return per_contig

@@ -22,6 +22,7 @@ import torch
 
 from localhgt_tpu_torch.ops import count as count_mod
 from localhgt_tpu_torch.ops import cuda_vote, encode
+from localhgt_tpu_torch.utils import metrics
 
 MAP_BUILD_CHUNK = 1 << 22  # reference positions hashed per map-build step
 PAIR_CACHE_LIMIT = 2 << 30  # bytes of (hash, pid) stream kept between passes
@@ -118,21 +119,23 @@ def build_direct_map(per_contig, contigs, tables, masks, k: int,
                      device) -> PeakSet:
     """Device build of the hash -> peak-id map. Reference chunks with no
     peak member are skipped. Consumes `per_contig`."""
-    pcontig, ppos, gpos, pids = _flatten_members(per_contig, contigs, k)
+    with metrics.span("peakset.flatten"):
+        pcontig, ppos, gpos, pids = _flatten_members(per_contig, contigs, k)
     direct_map = torch.zeros(1 << k, dtype=torch.int32, device=device)
     total = len(contigs.codes)
-    for base in range(0, max(total, 1), MAP_BUILD_CHUNK):
-        lo = int(np.searchsorted(gpos, base))
-        hi = int(np.searchsorted(gpos, base + MAP_BUILD_CHUNK))
-        if hi == lo:
-            continue
-        codes = np.full(MAP_BUILD_CHUNK + k, 4, np.uint8)
-        avail = contigs.codes[base : base + MAP_BUILD_CHUNK + k]
-        codes[: len(avail)] = avail
-        _build_map_chunk(
-            direct_map, tables, torch.from_numpy(codes).to(device),
-            torch.from_numpy(gpos[lo:hi] - base).to(device),
-            torch.from_numpy(pids[lo:hi]).to(device), masks, k)
+    with metrics.span("peakset.build"):
+        for base in range(0, max(total, 1), MAP_BUILD_CHUNK):
+            lo = int(np.searchsorted(gpos, base))
+            hi = int(np.searchsorted(gpos, base + MAP_BUILD_CHUNK))
+            if hi == lo:
+                continue
+            codes = np.full(MAP_BUILD_CHUNK + k, 4, np.uint8)
+            avail = contigs.codes[base : base + MAP_BUILD_CHUNK + k]
+            codes[: len(avail)] = avail
+            _build_map_chunk(
+                direct_map, tables, torch.from_numpy(codes).to(device),
+                torch.from_numpy(gpos[lo:hi] - base).to(device),
+                torch.from_numpy(pids[lo:hi]).to(device), masks, k)
     return PeakSet(contig=pcontig, pos=ppos, direct_map=direct_map)
 
 

@@ -9,6 +9,13 @@ Copy of localhgt_tpu/utils/metrics.py without what asks JAX for a profiler
 trace or for device memory: each stage is a `torch.profiler` span instead
 (read when a profiler is active), and device memory is in
 localhgt_tpu_torch/utils/device.py.
+
+Below the stages, `span(name)` names a part of a stage's host work, or of
+the orchestration between stages: a `torch.profiler.record_function` on
+the trace's clock, and its seconds added to the counter `<name>_s`, so
+`counters()` carries them and `reset()` clears them with the rest. Spans
+never touch the stage walls. The benchmark reads each `<name>_s` from
+`counters()` after a sample (hgtbench/layers/span_s.*.py).
 """
 
 from __future__ import annotations
@@ -99,6 +106,34 @@ def stage(name: str):
     _STAGE_RSS[name] = host_rss_gb()
 
 
+@contextlib.contextmanager
+def span(name: str):
+    """Add the wall of the body, even one that raises, to the counter
+    `name + "_s"`; under an active torch.profiler the body is also a span
+    of its trace. Unlike `stage` it takes no RSS sample, trims no heap and
+    waits for no device: it records only where the host is."""
+    t0 = time.perf_counter()
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        add(name + "_s", time.perf_counter() - t0)
+
+
+_END = object()
+
+
+def spanned(name: str, iterable):
+    """The items of `iterable`, each advance of it inside `span(name)`."""
+    it = iter(iterable)
+    while True:
+        with span(name):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
+
+
 def current_stage() -> str:
     """The innermost stage open now; "" outside every stage."""
     return _OPEN[-1] if _OPEN else ""
@@ -127,8 +162,9 @@ def derived(n_pairs: int, read_len: int, coder_num: int) -> dict:
       kernel perf from it.
     - count_step_gbps_device: count-stage bytes (~9 per k-mer per coder:
       sorted-stream reads + table writes) a batch over the mean synced
-      device step (`count_step_device_s`, sampled on every 16th batch by
-      pipeline.extract.count_kmers on a CUDA device; absent on the CPU).
+      device step (`count_step_device_s`: the JAX package's count step
+      samples it on every 16th batch; the port's records no such series,
+      since sampling it synchronizes the device inside the timed path).
     - count_scatter_gbps_stage: the old stage-wall proxy, renamed (the
       same bytes over the `count` stage wall)."""
     out = {}

@@ -286,7 +286,7 @@ def test_count_kmers_records_the_dispatch_series_and_no_device_step(
     `count_step_device_s`, the series a device metric is derived from."""
     from test_torch_cuda import count_series
 
-    _, nb, series = count_series(tmp_path, monkeypatch, "cpu")
+    _, nb, series, _ = count_series(tmp_path, monkeypatch, "cpu")
     assert nb > 17  # batches 1 and 17 would be sampled on a card
     assert set(series) == {"count_batch_dispatch_s"}
     assert len(series["count_batch_dispatch_s"]) == nb

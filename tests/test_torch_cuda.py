@@ -728,23 +728,28 @@ def test_bkp_over_a_mesh_on_the_card(dev, tmp_path):
 
 def test_count_kmers_samples_the_device_step_on_the_card(dev, tmp_path,
                                                          monkeypatch):
-    """On the card count_kmers times the synced step of every 16th batch
-    (batches 1, 17, ...) beside one dispatch sample a batch, and its
-    tables equal the CPU run's."""
-    want, nb, cpu_series = count_series(tmp_path / "cpu", monkeypatch, "cpu")
-    got, nb_card, series = count_series(tmp_path / "card", monkeypatch, dev)
+    """On the card count_kmers records one dispatch sample a batch and no
+    synced device step (`count_step_device_s`: it synchronized the card
+    inside the timed path), its `count.*` spans record seconds as on the
+    CPU, and its tables equal the CPU run's."""
+    want, nb, cpu_series, cpu_counters = count_series(
+        tmp_path / "cpu", monkeypatch, "cpu")
+    got, nb_card, series, counters = count_series(
+        tmp_path / "card", monkeypatch, dev)
     assert nb_card == nb > 17
+    assert set(series) == set(cpu_series) == {"count_batch_dispatch_s"}
     assert len(series["count_batch_dispatch_s"]) == nb
-    assert len(series["count_step_device_s"]) == len(range(1, nb, 16))
-    assert "count_step_device_s" not in cpu_series
+    spans = {f"count.{p}_s" for p in ("parse", "pad", "upload", "step")}
+    assert spans <= set(counters) and spans <= set(cpu_counters)
+    assert all(counters[s] > 0 for s in spans)
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
 
 
 def count_series(tmp_path, monkeypatch, device):
     """count_kmers at 64 reads a batch on a small fixture; returns (its
-    tables, the number of batches, the registry's series). Also run on
-    the CPU by tests/test_torch_count_scan_peaks.py."""
+    tables, the number of batches, the registry's series and counters).
+    Also run on the CPU by tests/test_torch_count_scan_peaks.py."""
     from localhgt_tpu_torch.config import Config, KmerConfig
     from localhgt_tpu_torch.ops import encode
     from localhgt_tpu_torch.pipeline import extract
@@ -764,5 +769,6 @@ def count_series(tmp_path, monkeypatch, device):
     nb = 2 * -(-n_reads // 64)
     assert metrics.counters()["count_batches"] == nb
     series = {k: list(v) for k, v in metrics._SERIES.items()}
+    counters = metrics.counters()
     metrics.reset()
-    return tables, nb, series
+    return tables, nb, series, counters
