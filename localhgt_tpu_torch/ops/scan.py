@@ -3,7 +3,13 @@
 Port of localhgt_tpu/ops/scan.py::scan_hits, reproduced bug for bug (the
 stencil and its telescoped left sum are documented there). The host
 helpers (`good_intervals`, `peaks_in_intervals`, `final_intervals`,
-`truncated_min`) are copied from the JAX package line for line.
+`truncated_min`) are copied from the JAX package line for line, but for
+`good_intervals`' merge loop, which is `merge_good_runs`.
+
+`finalize_contig` gives what `good_intervals` and `peaks_in_intervals`
+give, from a contig's masks where they are (on the card in stage B): only
+the good runs' edges and the peak arrays reach the host, and the merge
+loop runs there on the edges.
 """
 
 from __future__ import annotations
@@ -78,11 +84,21 @@ def good_intervals(good: np.ndarray, window: int, pad: int | None = None):
     whose start is < window past the previous end merely extends it).
     """
     good = np.asarray(good, dtype=bool)
-    L = len(good)
     pad = 2 * window if pad is None else pad
     g = good.astype(np.int8)
     rising = np.flatnonzero(np.diff(np.concatenate([[0], g])) == 1)
     falling = np.flatnonzero(np.diff(np.concatenate([g, [0]])) == -1)
+    return merge_good_runs(rising, falling, len(good), window, pad)
+
+
+def merge_good_runs(rising, falling, L: int, window: int, pad: int):
+    """The merge loop of `good_intervals` over a mask's runs: `rising[i]`
+    and `falling[i]` are the first and last position of run i, in order,
+    of a contig of length L. Returns the same (start, end) list.
+
+    For window >= 0 and pad >= 0 the intervals are disjoint, ascending
+    and never reversed: a new one starts at least `window` past the
+    previous end."""
     out: list[list[int]] = []
     for r, f in zip(rising, falling):
         start = max(r - pad, 1)
@@ -154,3 +170,55 @@ def final_intervals(contig_peaks, ref_near: int, ref_gap: int, contig_lens=None)
             (r, s, min(e, contig_lens[r])) for r, s, e in out
         ]
     return out
+
+
+def good_edges(good: torch.Tensor) -> torch.Tensor:
+    """int32 [2 n] of a bool [L] mask with n runs: the first position of
+    each run and one past its last, in order."""
+    z = good.new_zeros(1)
+    g = torch.cat([z, good, z])
+    return torch.nonzero(g[1:] != g[:-1]).flatten().to(torch.int32)
+
+
+def peak_members(peak: torch.Tensor, intervals, merge_bin: int):
+    """`peaks_in_intervals` where the mask is: (positions, members,
+    group_ids) as int32 tensors on peak's device, or None without a
+    member. `intervals` must be disjoint, ascending and never reversed
+    (merge_good_runs' output): membership is the prefix sum of +1 at each
+    start and -1 at each end, which counts every position once."""
+    if not intervals:
+        return None
+    L = peak.numel()
+    dev = peak.device
+    iv = torch.tensor(intervals, dtype=torch.int64).to(dev)
+    marks = torch.zeros(L + 1, dtype=torch.int32, device=dev)
+    one = torch.ones(len(intervals), dtype=torch.int32, device=dev)
+    marks.index_add_(0, iv[:, 0], one)
+    marks.index_add_(0, iv[:, 1], -one)
+    inside = torch.cumsum(marks[:L], 0, dtype=torch.int32) > 0
+    mem = torch.nonzero(peak & inside).flatten().to(torch.int32)
+    if mem.numel() == 0:
+        return None
+    bins = torch.div(mem, merge_bin, rounding_mode="floor")
+    first = torch.ones_like(mem, dtype=torch.bool)
+    first[1:] = bins[1:] != bins[:-1]
+    gid = torch.cumsum(first, 0, dtype=torch.int32) - 1
+    return mem[first], mem, gid
+
+
+def finalize_contig(good: torch.Tensor, peak: torch.Tensor, window: int,
+                    pad: int, merge_bin: int, fetch):
+    """`peaks_in_intervals(peak, good_intervals(good, window, pad),
+    merge_bin)` of one contig's bool [L] masks, equal in dtype, order and
+    value, computed where the masks are. `fetch(*tensors)` hands int32
+    tensors to the host as numpy arrays (utils/device.HostStaging): the
+    runs' edges, then the three peak arrays."""
+    L = good.numel()
+    (edges,) = fetch(good_edges(good))
+    edges = edges.astype(np.int64)
+    ivs = merge_good_runs(edges[0::2], edges[1::2] - 1, L, window, pad)
+    got = peak_members(peak, ivs, merge_bin)
+    if got is None:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int32),
+                np.zeros(0, np.int32))
+    return tuple(fetch(*got))

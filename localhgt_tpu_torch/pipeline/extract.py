@@ -7,7 +7,8 @@ described there):
      tables, caching the padded read codes on the device for the later
      read passes;
   B. scan the reference: gather per-position counts, good-window and peak
-     stencils, host interval assembly;
+     stencils, each contig's intervals and peaks on the device, only the
+     good runs' edges and the peak arrays copied back;
   C. build the direct hash -> peak-id map, vote pairs that bridge two
      genomes' peaks (kernel K3), keep peaks with >= MIN_READS votes and
      emit merged intervals and bed lines.
@@ -31,6 +32,7 @@ import torch
 from localhgt_tpu_torch.config import Config
 from localhgt_tpu_torch.io import fasta, fastq
 from localhgt_tpu_torch.utils import metrics
+from localhgt_tpu_torch.utils.device import HostStaging
 from localhgt_tpu_torch.ops import count, encode, scan
 from localhgt_tpu_torch.pipeline import peaks as peaks_mod
 
@@ -223,7 +225,14 @@ def scan_rows(tables, codes, true_len, masks, k: int, scan_cfg,
 def scan_reference(tables, contigs: fasta.Contigs, masks, cfg: Config,
                    device):
     """Stage B: per-contig good intervals + peak member arrays, as
-    [(cid, positions, members, group_ids)] (scan.peaks_in_intervals)."""
+    [(cid, positions, members, group_ids)] (scan.peaks_in_intervals).
+
+    The masks stay on the device: each contig's rows are stitched into
+    two masks of its length there, and `scan.finalize_contig` reduces
+    them to the peak arrays, which alone (with the good runs' edges) come
+    back, through one pinned buffer. Counters: `scan_finalize_contigs`,
+    the contigs finalized; `scan_finalize_d2h_bytes`, the bytes brought
+    back."""
     k = cfg.kmer.k
     halo = cfg.scan.window + 4 * k + 64
     longest = int(max(contigs.lengths)) if contigs.n else 0
@@ -245,13 +254,13 @@ def scan_reference(tables, contigs: fasta.Contigs, masks, cfg: Config,
 
     per_contig = []
     state = {"total": 0, "stop": False}
+    staging = HostStaging(device)
 
     def finalize(cid, good, peak):
         with metrics.span("scan.finalize"):
-            ivs = scan.good_intervals(good, cfg.scan.window,
-                                      pad=cfg.scan.good_pad)
-            pos, mem, gid = scan.peaks_in_intervals(
-                peak, ivs, cfg.scan.merge_close_peak)
+            pos, mem, gid = scan.finalize_contig(
+                good, peak, cfg.scan.window, cfg.scan.good_pad,
+                cfg.scan.merge_close_peak, staging.fetch)
             # --max_peak capacity (Peaks::init cpp:229-237): truncate
             if state["total"] + len(pos) > cfg.scan.max_peak:
                 keep = max(0, cfg.scan.max_peak - state["total"])
@@ -261,45 +270,50 @@ def scan_reference(tables, contigs: fasta.Contigs, masks, cfg: Config,
                     "Too many peaks (>%d)! Reduce the sampling size, or "
                     "appoint a larger max_peak_num (see --max_peak). "
                     "Truncating.", cfg.scan.max_peak)
+        metrics.add("scan_finalize_contigs", 1)
         state["total"] += len(pos)
         per_contig.append((cid, pos, mem, gid))
         if state["total"] >= cfg.scan.max_peak:
             state["stop"] = True
 
-    cur = None
-    good = peak = None
-    for base in range(0, len(jobs), SCAN_ROWS):
-        if state["stop"]:
-            break
-        grp = jobs[base : base + SCAN_ROWS]
-        with metrics.span("scan.assemble"):
-            buf = np.full((SCAN_ROWS, chunk), 4, np.uint8)
-            tl = np.zeros(SCAN_ROWS, np.int64)
-            for r, (cid, s, e, cs, n_live) in enumerate(grp):
-                codes = contigs.contig_codes(cid)
-                buf[r, : min(chunk, len(codes) - cs)] = codes[cs : cs + chunk]
-                tl[r] = n_live
-        with metrics.span("scan.device"):
-            g, p = scan_rows(tables, torch.from_numpy(buf).to(device),
-                             torch.from_numpy(tl).to(device), masks, k,
-                             cfg.scan, cfg.kmer.least_depth)
-            g = g.cpu().numpy()
-            p = p.cpu().numpy()
-        for r, (cid, s, e, cs, _) in enumerate(grp):
-            if cid != cur:
-                if cur is not None:
-                    finalize(cur, good, peak)  # its own span, not stitch's
-                    if state["stop"]:
-                        break
-                cur = cid
-                L = contigs.length_of(cid)
-                good = np.zeros(L, bool)
-                peak = np.zeros(L, bool)
-            with metrics.span("scan.stitch"):
-                good[s:e] = g[r, s - cs : s - cs + (e - s)]
-                peak[s:e] = p[r, s - cs : s - cs + (e - s)]
-    if cur is not None and not state["stop"]:
-        finalize(cur, good, peak)
+    try:
+        cur = None
+        good = peak = None
+        for base in range(0, len(jobs), SCAN_ROWS):
+            if state["stop"]:
+                break
+            grp = jobs[base : base + SCAN_ROWS]
+            with metrics.span("scan.assemble"):
+                buf = np.full((SCAN_ROWS, chunk), 4, np.uint8)
+                tl = np.zeros(SCAN_ROWS, np.int64)
+                for r, (cid, s, e, cs, n_live) in enumerate(grp):
+                    codes = contigs.contig_codes(cid)
+                    n = min(chunk, len(codes) - cs)
+                    buf[r, :n] = codes[cs : cs + n]
+                    tl[r] = n_live
+            with metrics.span("scan.device"):
+                g, p = scan_rows(tables, torch.from_numpy(buf).to(device),
+                                 torch.from_numpy(tl).to(device), masks, k,
+                                 cfg.scan, cfg.kmer.least_depth)
+                _sync(device)  # the scan's device work ends inside its span
+            for r, (cid, s, e, cs, _) in enumerate(grp):
+                if cid != cur:
+                    if cur is not None:
+                        finalize(cur, good, peak)  # its own span, not stitch's
+                        if state["stop"]:
+                            break
+                    cur = cid
+                    L = contigs.length_of(cid)
+                    good = torch.empty(L, dtype=torch.bool, device=device)
+                    peak = torch.empty_like(good)
+                with metrics.span("scan.stitch"):
+                    good[s:e] = g[r, s - cs : e - cs]
+                    peak[s:e] = p[r, s - cs : e - cs]
+        if cur is not None and not state["stop"]:
+            finalize(cur, good, peak)
+    finally:
+        staging.close()
+    metrics.add("scan_finalize_d2h_bytes", staging.nbytes)
     return per_contig
 
 

@@ -18,10 +18,12 @@ import torch
 from localhgt_tpu.config import Config as JaxConfig
 from localhgt_tpu.config import KmerConfig as JaxKmerConfig
 from localhgt_tpu.config import ScanConfig as JaxScanConfig
+from localhgt_tpu.index import reference as jax_reference
 from localhgt_tpu.ops import encode as jax_encode
 from localhgt_tpu.ops import sw as jax_sw
 from localhgt_tpu.parallel import extract_sharded as jax_shx
 from localhgt_tpu.parallel import mesh as jax_pmesh
+from localhgt_tpu.pipeline import extract as jax_extract
 from localhgt_tpu.pipeline import peaks as jax_peaks
 from localhgt_tpu.pipeline.bkp import detect_breakpoint as jax_bkp
 from localhgt_tpu.sim.simulate import SimParams, simulate_sample
@@ -443,12 +445,9 @@ def test_extract_sharded_equals_single_and_jax_mesh(single, mesh_runs):
     np.testing.assert_array_equal(pids, np.asarray(want.peakset.rmap.pids))
 
 
-def test_scan_reference_sharded_at_contig_ends_and_max_peak(sample, single):
-    """Blocks far shorter than a contig, a contig shorter than one block,
-    one shorter than k, and the --max_peak cut: per-contig peaks equal the
-    single path's."""
-    ref, fq1, fq2 = sample
-    tables = [torch.from_numpy(t) for t in single[0]]
+def _odd_contigs_fasta(ref):
+    """A FASTA beside `ref` of a whole contig of it, one shorter than a
+    scan block, one shorter than k and a middling one."""
     contigs = reference.build(ref)
     codes = [contigs.contig_codes(c) for c in (1, 2)]
     extra = os.path.join(os.path.dirname(ref), "odd_contigs.fa")
@@ -456,7 +455,16 @@ def test_scan_reference_sharded_at_contig_ends_and_max_peak(sample, single):
         for name, c in (("long", codes[0]), ("short", codes[1][:700]),
                         ("tiny", codes[1][:10]), ("mid", codes[1][:9000])):
             f.write(f">{name}\n{''.join('ACGT'[x] for x in c)}\n")
-    odd = reference.build(extra)
+    return extra
+
+
+def test_scan_reference_sharded_at_contig_ends_and_max_peak(sample, single):
+    """Blocks far shorter than a contig, a contig shorter than one block,
+    one shorter than k, and the --max_peak cut: per-contig peaks equal the
+    single path's."""
+    ref, fq1, fq2 = sample
+    tables = [torch.from_numpy(t) for t in single[0]]
+    odd = reference.build(_odd_contigs_fasta(ref))
     cfg = Config().replace(kmer=KmerConfig(k=K))
     masks, _ = encode.hasher_for(K, 3, cfg.kmer.seed)
     for max_peak in (cfg.scan.max_peak, 7):
@@ -474,6 +482,37 @@ def test_scan_reference_sharded_at_contig_ends_and_max_peak(sample, single):
                     np.testing.assert_array_equal(a, b)
         assert sum(len(w[1]) for w in want) > 0
     assert sum(len(w[1]) for w in want) == 7
+
+
+def test_scan_reference_equals_jax(sample, single):
+    """extract.scan_reference (masks stitched and finalized on the device,
+    here the CPU) against the JAX package's on the fixture's reference and
+    on the odd contigs, with and without a --max_peak cut: every (cid,
+    positions, members, group_ids) equal in dtype and value."""
+    ref, _, _ = sample
+    tables = [torch.from_numpy(t) for t in single[0]]
+    jtables = [jnp.asarray(a) for a in count.tables_to_jax(tables, K)]
+    masks, _ = encode.hasher_for(K, 3, Config().kmer.seed)
+    jmasks, _ = jax_encode.hasher_for(K, 3, JaxConfig().kmer.seed)
+    np.testing.assert_array_equal(masks, jmasks)
+    for path in (ref, _odd_contigs_fasta(ref)):
+        contigs, jcontigs = reference.build(path), jax_reference.build(path)
+        for max_peak in (Config().scan.max_peak, 7):
+            cfg = Config().replace(kmer=KmerConfig(k=K),
+                                   scan=ScanConfig(max_peak=max_peak))
+            jcfg = JaxConfig().replace(kmer=JaxKmerConfig(k=K),
+                                       scan=JaxScanConfig(max_peak=max_peak))
+            got = extract.scan_reference(tables, contigs, masks, cfg, "cpu")
+            want = jax_extract.scan_reference(jtables, jcontigs, jmasks,
+                                              jcfg)
+            assert [g[0] for g in got] == [w[0] for w in want]
+            assert sum(len(g[2]) for g in got) > 0
+            for g, w in zip(got, want):
+                for a, b in zip(g[1:], w[1:]):
+                    assert a.dtype == b.dtype
+                    np.testing.assert_array_equal(a, b)
+            if max_peak == 7:
+                assert sum(len(g[1]) for g in got) == 7
 
 
 def test_bkp_with_a_mesh_writes_the_single_device_files(sample, single,
