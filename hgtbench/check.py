@@ -11,7 +11,13 @@ difference is a wrong answer.
 - alignments: rows of the two mates' alignment tables that differ in any
   field, plus the difference in their row counts;
 - raw_junctions, acc_lines: raw junctions and acc.csv lines that one side
-  has and the other has not.
+  has and the other has not;
+- qc_counts (QC only): the summed gaps of the pairs kept, the mates cut to
+  their insert and the bases kept, between the program's `qc_*` counters
+  and the reference's QC;
+- refined_records (QC only): records of the two refined FASTQ files that
+  differ, position by position, plus the difference in their record
+  counts.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import collections
 import numpy as np
 
 LIMIT = 0
+# the QC counts compared: pairs_in and bases_in are the input's own
+QC_COUNTS = ("pairs_out", "adapter_trimmed", "bases_out")
 
 
 def _sym_diff(a, b) -> int:
@@ -57,7 +65,8 @@ def compare(prog: dict, ref: dict, use_kmer: bool) -> dict:
     "acc" [str]; the program's interval lines are its file's, the
     reference's its (cid, start, end) tuples written the same way. The
     program's "a1", "a2" and "raw" are absent where its run ended before
-    aligning (an empty sub-reference)."""
+    aligning (an empty sub-reference). Where the reference ran QC, both
+    hold "qc", the counts by name (the program's from its counters)."""
     out = {}
     if use_kmer:
         ref_iv = [f"{c}\t{s}\t{e}" for c, s, e in ref["intervals"]]
@@ -69,7 +78,30 @@ def compare(prog: dict, ref: dict, use_kmer: bool) -> dict:
     out["raw_junctions"] = _sym_diff([_raw_key(r) for r in prog.get("raw", [])],
                                      [_raw_key(r) for r in ref["raw"]])
     out["acc_lines"] = _sym_diff(prog["acc"], ref["acc"])
+    if "qc" in ref:
+        out["qc_counts"] = sum(abs(int(prog["qc"].get(k, 0)) - ref["qc"][k])
+                               for k in QC_COUNTS)
     return out
+
+
+def _fastq_records(data: bytes) -> list:
+    """The records of a FASTQ file's bytes, four lines each with their
+    newlines (the last one as far as it goes)."""
+    lines = data.split(b"\n")
+    lines = [ln + b"\n" for ln in lines[:-1]] + [lines[-1]] * bool(lines[-1])
+    return [b"".join(lines[i:i + 4]) for i in range(0, len(lines), 4)]
+
+
+def refined_records(prog: tuple, ref: tuple) -> int:
+    """Records of the refined FASTQ files (the bytes of mate 1's and mate
+    2's) that differ between the program and the reference, position by
+    position, plus the difference in their record counts."""
+    n = 0
+    for a, b in zip(prog, ref):
+        if a != b:
+            ra, rb = _fastq_records(a), _fastq_records(b)
+            n += sum(x != y for x, y in zip(ra, rb)) + abs(len(ra) - len(rb))
+    return n
 
 
 def worst(readings: list) -> dict:

@@ -14,7 +14,13 @@ come from a stream that no seed changes (`fixed_sizes`), and the seed
 only decides which genome gets which length and in which order a
 sample's HGTs take theirs. So the reference has the same length and a
 sample the same number of pairs and of transferred bases for every
-seed, and seeds differ in the bases, the loci and the reads alone."""
+seed, and seeds differ in the bases, the loci and the reads alone.
+
+A traffic with `adapter_frac` or `lowq_frac` plants what QC is there to
+find (`sim.Planting`) into a fixed share of each chunk's pairs, from a
+stream of its own, [seed, ADAPT, sample index, chunk]: a traffic without
+those keys writes the same bytes as one before them, and every seed plants
+the same share of each chunk."""
 
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from hgtbench import sim
 REF, POOL = 0, 1
 # the stream of the sizes, [SIZES] alone: the same for every seed
 SIZES = 4
+# the stream of a chunk's planting, [seed, ADAPT, sample index, chunk]
+ADAPT = 5
 CHUNK_CONTIGS = 8
 
 
@@ -72,10 +80,12 @@ def fixed_sizes(pa: sim.SimParams) -> tuple[np.ndarray, np.ndarray]:
 
 def _reads(args) -> tuple[bytes, bytes, int]:
     """FASTQ bytes of both mates of one chunk of contigs (child process)."""
-    contigs, pa, seed, stream = args
+    contigs, pa, seed, stream, planting = args
+    parts = list(sim.synthesize_reads(contigs, pa, _rng(seed, *stream)))
+    if planting is not None:
+        planting.apply(parts, _rng(seed, ADAPT, *stream[1:]))
     b1, b2, n = [], [], 0
-    for chrom, starts, m1, m2, q1, q2 in sim.synthesize_reads(
-            contigs, pa, _rng(seed, *stream)):
+    for chrom, starts, m1, m2, q1, q2 in parts:
         b1.append(sim.fastq_records(chrom, starts, m1, q1))
         b2.append(sim.fastq_records(chrom, starts, m2, q2))
         n += len(starts)
@@ -84,10 +94,11 @@ def _reads(args) -> tuple[bytes, bytes, int]:
 
 def make(outdir: str, config: dict, traffic: dict, seed: int) -> Cohort:
     """The reference and traffic["pool"] samples at traffic["depth"], all
-    from `seed`."""
+    from `seed`, with the traffic's planting (`sim.Planting.of`)."""
     os.makedirs(outdir, exist_ok=True)
     t0 = time.perf_counter()
     pa = sim_params(config, traffic, traffic["depth"])
+    planting = sim.Planting.of(traffic)
     lengths, fracs = fixed_sizes(pa)
     rng = _rng(seed, REF)
     genomes, ref = sim.make_reference(outdir, "ref", pa, rng,
@@ -106,7 +117,8 @@ def make(outdir: str, config: dict, traffic: dict, seed: int) -> Cohort:
                   for j in range(0, len(names), CHUNK_CONTIGS)]
         samples.append((name, truth_path, len(chunks)))
         tasks += [({c: edited[c] for c in chunk}, p, seed,
-                   (stream, index, j)) for j, chunk in enumerate(chunks)]
+                   (stream, index, j), planting)
+                  for j, chunk in enumerate(chunks)]
     t1 = time.perf_counter()
     made = []
     ctx = multiprocessing.get_context("spawn")

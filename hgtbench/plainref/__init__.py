@@ -8,7 +8,9 @@ port's kernels replaced by its plain torch version (ops/sw_plain.py for
 K1 and K2, ops/vote_plain.py for K3, the plain hashing, count and seed
 prefilter for K4 to K6), FASTQ parsed by numpy and seeds looked up by
 numpy (the numpy path of the JAX package's aligner) where the port uses
-its C++ library. No mesh, no QC, no count checkpoint. It imports nothing
-of the port, of the JAX package or of JAX, and takes nothing the program
-made: it reads the FASTA itself, not the port's cached index of it.
+its C++ library. QC (`--refine_fq`) is io/qc.py, written from fastp's
+rules, not copied from the port's vectorised one. No mesh, no count
+checkpoint. It imports nothing of the port, of the JAX package or of JAX,
+and takes nothing the program made: it reads the FASTA itself, not the
+port's cached index of it.
 """

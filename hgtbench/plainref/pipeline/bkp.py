@@ -6,21 +6,28 @@ junctions and the lines of <sample>.acc.csv.
 
 Differences from the port, none of which changes a result: the reference
 FASTA is read directly (the port caches an index of it beside the file),
-FASTQ is parsed by numpy, seeds are looked up by numpy, no QC and no mesh.
+FASTQ is parsed by numpy, seeds are looked up by numpy, QC is io/qc.py
+(written from fastp's rules, not the port's vectorised copy) and there is
+no mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import os
 import tempfile
+import time
 
 import numpy as np
 import torch
 
 from hgtbench.plainref.config import Config
-from hgtbench.plainref.io import fasta, fastq
+from hgtbench.plainref.io import fasta, fastq, qc
 from hgtbench.plainref.pipeline import accbkp, align, extract, rawbkp
 from hgtbench.plainref.utils import formats
+
+log = logging.getLogger("hgtbench.plainref.bkp")
 
 
 class CompactRows:
@@ -137,10 +144,31 @@ def align_reads(fq1: str, fq2: str, subref: align.SubRef,
 
 
 def run(ref_path: str, fq1: str, fq2: str, device, cfg: Config,
-        use_kmer: bool = True) -> dict:
+        use_kmer: bool = True, refine_fq: bool = False) -> dict:
     """`bkp` on one sample; returns {"intervals": [(cid, s, e)], "bed":
     [str], "subref_bp": int, "a1", "a2": AlnTable, "raw": [RawBkp],
-    "acc": [str]} (acc: the lines of acc.csv)."""
+    "acc": [str]} (acc: the lines of acc.csv). With `refine_fq` the pairs
+    go through QC first (into a temporary directory), and the result also
+    holds "refined": the bytes of the two refined FASTQ files, and "qc":
+    the QC's counts by name."""
+    if refine_fq:
+        with tempfile.TemporaryDirectory() as tmp:
+            r1 = os.path.join(tmp, "ref_refined_1.fq")
+            r2 = os.path.join(tmp, "ref_refined_2.fq")
+            t0 = time.perf_counter()
+            st = qc.refine_fastq(fq1, fq2, r1, r2, torch.device(device))
+            log.info("qc: %d of %d pairs kept, %d mates cut, %d of %d "
+                     "bases kept, %.1f s", st.pairs_out, st.pairs_in,
+                     st.adapter_trimmed, st.bases_out, st.bases_in,
+                     time.perf_counter() - t0)
+            out = run(ref_path, r1, r2, device, cfg, use_kmer)
+            out["qc"] = dataclasses.asdict(st)
+            refined = []
+            for path in (r1, r2):
+                with open(path, "rb") as f:
+                    refined.append(f.read())
+            out["refined"] = tuple(refined)
+        return out
     device = torch.device(device)
     contigs = fasta.read_fasta(ref_path)
     cache = None

@@ -5,7 +5,9 @@
 
 A cell is a cohort of simulated samples run through the port's `bkp`
 (`localhgt_tpu_torch.pipeline.bkp.detect_breakpoint`, the call the CLI's
-`bkp` makes) one after another against one reference, on one CUDA card.
+`bkp` makes) one after another against one reference, on one CUDA card;
+`bkp` runs QC on the raw reads first where the cell's configuration sets
+`refine_fq` (`--refine_fq 1`).
 
 1. Set-up (`setup_s`, from process start): the CUDA context, the
    reference and a pool of samples made from --seed under $TMPDIR, and
@@ -18,7 +20,8 @@ A cell is a cohort of simulated samples run through the port's `bkp`
    sample in flight finishes. With --trace 1 the window runs under
    torch.profiler.
 3. After the window: the plain reference (hgtbench/plainref) works out
-   the checked samples again and check.py compares; recall and FDR
+   the checked samples again, through its own QC where the configuration
+   sets `refine_fq`, and check.py compares; recall and FDR
    against the simulator's truth go to standard error; then the result.
 
 The last line of standard output is one JSON object: `correct`,
@@ -70,18 +73,21 @@ def note(msg: str) -> None:
 
 def host_times() -> tuple:
     """(this process's CPU seconds, its threads' and children's included;
-    the machine's steal and iowait seconds over all cores), for the
-    progress lines: a sample that took longer with the same CPU time
-    waited on the host, one that took more CPU time did more work."""
+    the system part of them; the machine's steal and iowait seconds over
+    all cores), for the progress lines: a sample that took longer with the
+    same CPU time waited on the host, one that took more CPU time did more
+    work or ran on a slower host (the system part: page faults and system
+    calls)."""
     t = os.times()
     cpu = t.user + t.system + t.children_user + t.children_system
+    sys_s = t.system + t.children_system
     try:
         with open("/proc/stat") as f:
             ticks = f.readline().split()[1:]
         hz = os.sysconf("SC_CLK_TCK")
-        return cpu, int(ticks[7]) / hz, int(ticks[4]) / hz
+        return cpu, sys_s, int(ticks[7]) / hz, int(ticks[4]) / hz
     except (OSError, IndexError, ValueError):
-        return cpu, 0.0, 0.0
+        return cpu, sys_s, 0.0, 0.0
 
 
 def dirty_mib() -> str:
@@ -239,6 +245,13 @@ def _read_lines(path: str) -> list:
         return f.read().splitlines()
 
 
+def _read_bytes(path: str) -> bytes:
+    if not os.path.exists(path):
+        return b""
+    with open(path, "rb") as f:
+        return f.read()
+
+
 def run_cell(cell, seed: int, seconds: float, trace: bool, device,
              workdir: str) -> tuple[dict, dict]:
     """One run of `cell` (registry.Cell) on `device`, its files under
@@ -257,6 +270,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     on_card = device.type == "cuda"
     config, traffic = cell.config, cell.traffic
     use_kmer = bool(config["use_kmer"])
+    refine_fq = bool(config.get("refine_fq", 0))
     cfg = pipeline_config(Config, KmerConfig, ScanConfig, config)
     for name in ("localhgt_tpu_torch", "hgtbench"):
         logging.getLogger(name).setLevel(logging.WARNING)
@@ -275,7 +289,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     def bkp(s):
         return bkp_mod.detect_breakpoint(
             co.ref, s.fq1, s.fq2, s.name, outdir, device, cfg=cfg,
-            use_kmer=use_kmer)
+            use_kmer=use_kmer, refine_fq=refine_fq)
 
     pool = co.pool
     bkp(pool[0])  # the window starts at pool[1], never on the same sample
@@ -333,12 +347,16 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
                     got["intervals"] = _read_lines(iv)
                     got["bed"] = _read_lines(iv + ".bed")
                     got["subref_bp"] = run["counters"].get("subref_bp", 0)
+                    got["qc"] = {k[len("qc_"):]: v
+                                 for k, v in run["counters"].items()
+                                 if k.startswith("qc_")}
                     got["acc"] = run["acc"]
                     run["got"] = got
                 runs.append(run)
                 note(f"sample {i}: {run['wall_s']:.3f} s, cpu "
-                     f"{h1[0] - h0[0]:.2f} s, steal {h1[1] - h0[1]:.2f} s, "
-                     f"iowait {h1[2] - h0[2]:.2f} s {run['stages']}")
+                     f"{h1[0] - h0[0]:.2f} s (system {h1[1] - h0[1]:.2f} s), "
+                     f"steal {h1[2] - h0[2]:.2f} s, "
+                     f"iowait {h1[3] - h0[3]:.2f} s {run['stages']}")
                 if t1 - t_start >= seconds:
                     break
         window_s = time.perf_counter() - t_start
@@ -381,7 +399,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     # the reference's own progress lines say where its time goes
     logging.getLogger("hgtbench.plainref").setLevel(logging.INFO)
     # the samples checked: traffic["checked"] of the pool samples that
-    # ran, drawn from the seed; every run of each is compared
+    # ran, drawn from the seed; every run of each is compared, and with QC
+    # the refined files that the last run of each left
     ran = sorted({r["pool"] for r in runs if "got" in r})
     checked = np.random.default_rng([seed % (1 << 64), 3]).choice(
         ran, min(int(traffic["checked"]), len(ran)), replace=False) \
@@ -392,8 +411,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         if not mine:
             continue
         ref = ref_bkp.run(co.ref, pool[i].fq1, pool[i].fq2, device, ref_cfg,
-                          use_kmer=use_kmer)
+                          use_kmer=use_kmer, refine_fq=refine_fq)
         readings += [check.compare(g, ref, use_kmer) for g in mine]
+        if refine_fq:
+            mine_fq = tuple(_read_bytes(os.path.join(
+                outdir, f"{pool[i].name}_refined_{m}.fq")) for m in (1, 2))
+            readings.append({"refined_records": check.refined_records(
+                mine_fq, ref["refined"])})
+            del mine_fq
         del ref
         note(f"reference of sample {i} compared")
     numbers = check.worst(readings)

@@ -9,7 +9,9 @@ to the port's `simulate_sample` on the same parameters and seed
 
 `make_reference` and `make_sample` split `simulate_sample` in two, so a
 cohort shares one reference: the reference from one seed, each sample's
-HGTs, mutations and reads from a seed of its own.
+HGTs, mutations and reads from a seed of its own. `Planting` rewrites a
+share of a sample's pairs into what QC (`bkp --refine_fq 1`) is there to
+find: inserts shorter than the reads, and quality that fastp drops.
 """
 
 from __future__ import annotations
@@ -193,6 +195,66 @@ def synthesize_reads(genomes: dict[str, str], pa: SimParams, rng):
             q1 = q2 = np.full((n, L), 40, np.uint8)
         yield (chrom, starts, m1.astype(np.uint8), m2.astype(np.uint8),
                (q1 + 33).astype(np.uint8), (q2 + 33).astype(np.uint8))
+
+
+# Illumina's adapters as read 1 and read 2 read into them (chip_smoke.py's)
+ADAPTER_R1 = np.frombuffer(b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA", np.uint8)
+ADAPTER_R2 = np.frombuffer(b"AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT", np.uint8)
+LOW_PHRED = 2  # a collapsed quality tail, '#'
+
+
+@dataclass
+class Planting:
+    """What QC is there to find, planted into raw pairs, in every chunk of
+    n pairs: round(adapter_frac x n) pairs whose insert is shorter than the
+    reads (adapter_insert bp, both ends included), so that both mates read
+    through it into their adapter; and round(lowq_frac x n) other pairs
+    whose read 2 falls to Q2 over its second half, more than fastp lets
+    pass. Names and the pair count stay as they are."""
+
+    adapter_frac: float = 0.0
+    adapter_insert: tuple = (0, 0)
+    lowq_frac: float = 0.0
+
+    @classmethod
+    def of(cls, traffic: dict):
+        """The traffic's planting (keys adapter_frac with adapter_insert as
+        "lo-hi", lowq_frac), or None where it plants nothing."""
+        p = cls(adapter_frac=float(traffic.get("adapter_frac", 0)),
+                lowq_frac=float(traffic.get("lowq_frac", 0)))
+        if p.adapter_frac:
+            lo, hi = (int(x) for x in traffic["adapter_insert"].split("-"))
+            p.adapter_insert = (lo, hi)
+        return p if p.adapter_frac or p.lowq_frac else None
+
+    def apply(self, parts: list, rng) -> None:
+        """Plants into the (chrom, starts, m1, m2, q1, q2) of one chunk's
+        contigs (`synthesize_reads`' items), in place, drawing from `rng`."""
+        sizes = np.cumsum([0] + [len(p[1]) for p in parts])
+        n = int(sizes[-1])
+        n_ad = int(round(self.adapter_frac * n))
+        n_lq = int(round(self.lowq_frac * n))
+        if n_ad + n_lq > n:
+            raise ValueError(f"cannot plant {n_ad + n_lq} of {n} pairs")
+        rows = rng.choice(n, n_ad + n_lq, replace=False)
+        part = np.searchsorted(sizes, rows, side="right") - 1
+        row = rows - sizes[part]
+        lo, hi = self.adapter_insert
+        inserts = rng.integers(lo, hi + 1, n_ad)
+        for k in range(n_ad):
+            _, _, m1, m2, _, _ = parts[part[k]]
+            L = m1.shape[1]
+            if not 0 < inserts[k] < L:
+                raise ValueError(f"insert {inserts[k]} is no shorter than "
+                                 f"the {L} bp reads")
+            ins = m1[row[k], : inserts[k]].copy()
+            tail = _BASE_LUT[rng.integers(0, 4, L)]
+            m1[row[k]] = np.concatenate([ins, ADAPTER_R1, tail])[:L]
+            m2[row[k]] = np.concatenate([_COMP[ins[::-1]], ADAPTER_R2,
+                                         tail])[:L]
+        for k in range(n_ad, n_ad + n_lq):
+            q2 = parts[part[k]][5]
+            q2[row[k], q2.shape[1] // 2:] = 33 + LOW_PHRED
 
 
 def fastq_records(chrom: str, starts: np.ndarray, seqs: np.ndarray,

@@ -9,7 +9,7 @@ from hgtbench import run
 REFERENCE_MODULES = [
     "hgtbench.plainref.pipeline.bkp", "hgtbench.check", "hgtbench.score",
     "hgtbench.sim", "hgtbench.trace", "hgtbench.roofline",
-    "hgtbench.cohort", "hgtbench.control"]
+    "hgtbench.cohort", "hgtbench.control", "hgtbench.plainref.io.qc"]
 
 
 def test_reference_modules_load_nothing_forbidden():
