@@ -10,6 +10,12 @@ host side is vectorised per batch with numpy: records stay as offsets into
 the file's bytes, and kept records go out as slices of those bytes, so
 the refined FASTQs are byte-identical to the JAX package's without a
 Python loop over every record.
+
+Spans (utils/metrics.span), none inside another, all inside the caller's
+`qc` stage: `qc.parse` (each advance of the batch reader), `qc.encode`
+(both mates' codes), `qc.overlap` (the uploads, the scan on `device` and
+the copy back of the inserts, its wait on the device included),
+`qc.filter` (the trims, fastp's filter and the counts) and `qc.write`.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from localhgt_tpu_torch.ops.coder import _ASCII_TO_CODE
+from localhgt_tpu_torch.utils import metrics
 
 OVERLAP_REQUIRE = 30      # fastp overlap_len_require
 OVERLAP_DIFF_LIMIT = 5    # fastp overlap_diff_limit
@@ -41,6 +48,18 @@ class QCStats:
     adapter_trimmed: int = 0
     bases_in: int = 0
     bases_out: int = 0
+    batches: int = 0         # overlap scans run
+    overlap_blocks: int = 0  # blocks of offsets the scans looped over
+    overlap_cells: int = 0   # pairs x offsets x width the scans compared
+
+
+def _offset_blocks(B: int, L: int) -> range:
+    """The first offset of each block of candidate offsets that the
+    overlap scan of B pairs at width L loops over: offsets -(L - 30) to
+    L - 30, `step` a block, so that a block holds at most SCAN_ELEMENTS
+    [pairs, offsets, width] elements."""
+    span = L - OVERLAP_REQUIRE
+    return range(-span, span + 1, max(1, SCAN_ELEMENTS // max(1, B * L)))
 
 
 def _overlap_insert(codes1: torch.Tensor, len1: torch.Tensor,
@@ -71,10 +90,9 @@ def _overlap_insert(codes1: torch.Tensor, len1: torch.Tensor,
 
     best_ov = torch.zeros(B, dtype=torch.long, device=dev)
     best_ins = torch.zeros(B, dtype=torch.long, device=dev)
-    span = L - OVERLAP_REQUIRE
-    step = max(1, SCAN_ELEMENTS // max(1, B * L))
-    for lo in range(-span, span + 1, step):
-        d = torch.arange(lo, min(lo + step, span + 1), device=dev)
+    blocks = _offset_blocks(B, L)
+    for lo in blocks:
+        d = torch.arange(lo, min(lo + blocks.step, blocks.stop), device=dev)
         s = L - d
         both = valid1 & ok2w[:, s, :]
         mism = (both & (c1[:, None, :] != rc2w[:, s, :])).sum(dim=2)
@@ -255,36 +273,49 @@ def refine_fastq(fq1: str, fq2: str, out1: str, out2: str, device,
     names them `<sample>_refined_{1,2}.fq`) and returns QCStats."""
     st = QCStats()
     with open(out1, "wb") as f1, open(out2, "wb") as f2:
-        for r1, r2 in _read_batches(fq1, fq2, batch):
-            st.pairs_in += len(r1)
-            width = max(int(r1.line_len(1).max()), int(r2.line_len(1).max()),
-                        1)
-            width = -(-width // 32) * 32
-            mates = []
-            for rec in (r1, r2):
-                ln = rec.line_len(1)
-                seq = rec.line_bytes(1, width)
-                codes = np.where(_prefix(ln, width), _ASCII_TO_CODE[seq], 4)
-                mates.append((rec, ln, seq, codes.astype(np.uint8)))
-                st.bases_in += int(ln.sum())
-            ins = _overlap_insert(*(
-                torch.from_numpy(a).to(device)
-                for _, ln, _, codes in mates
-                for a in (codes, ln.astype(np.int32)))).cpu().numpy()
-            keep = np.ones(len(r1), bool)
-            cut = []
-            for rec, ln, seq, _ in mates:
-                trim = (ins > 0) & (ins < ln)
-                st.adapter_trimmed += int(trim.sum())
-                seq_len = np.where(trim, ins, ln)
-                qual_len = np.where(trim, np.minimum(rec.line_len(3), ins),
-                                    rec.line_len(3))
-                qual = rec.line_bytes(3, int(qual_len.max()))
-                keep &= _passes(seq, qual, seq_len, qual_len)
-                cut.append((seq_len, qual_len))
-            st.pairs_out += int(keep.sum())
-            for f, rec, (seq_len, qual_len) in ((f1, r1, cut[0]),
-                                                (f2, r2, cut[1])):
-                st.bases_out += int(seq_len[keep].sum())
-                _write_records(f, rec, keep, seq_len, qual_len)
+        for r1, r2 in metrics.spanned("qc.parse",
+                                      _read_batches(fq1, fq2, batch)):
+            with metrics.span("qc.encode"):
+                width = max(int(r1.line_len(1).max()),
+                            int(r2.line_len(1).max()), 1)
+                width = -(-width // 32) * 32
+                mates = []
+                for rec in (r1, r2):
+                    ln = rec.line_len(1)
+                    seq = rec.line_bytes(1, width)
+                    codes = np.where(_prefix(ln, width),
+                                     _ASCII_TO_CODE[seq], 4)
+                    mates.append((rec, ln, seq, codes.astype(np.uint8)))
+            with metrics.span("qc.overlap"):
+                ins = _overlap_insert(*(
+                    torch.from_numpy(a).to(device)
+                    for _, ln, _, codes in mates
+                    for a in (codes, ln.astype(np.int32)))).cpu().numpy()
+            with metrics.span("qc.filter"):
+                st.pairs_in += len(r1)
+                st.batches += 1
+                blocks = _offset_blocks(len(r1), width)
+                st.overlap_blocks += len(blocks)
+                st.overlap_cells += (len(r1) * width
+                                     * (blocks.stop - blocks.start))
+                keep = np.ones(len(r1), bool)
+                cut = []
+                for rec, ln, seq, _ in mates:
+                    trim = (ins > 0) & (ins < ln)
+                    st.adapter_trimmed += int(trim.sum())
+                    seq_len = np.where(trim, ins, ln)
+                    qual_len = np.where(trim,
+                                        np.minimum(rec.line_len(3), ins),
+                                        rec.line_len(3))
+                    qual = rec.line_bytes(3, int(qual_len.max()))
+                    keep &= _passes(seq, qual, seq_len, qual_len)
+                    cut.append((seq_len, qual_len))
+                    st.bases_in += int(ln.sum())
+                st.pairs_out += int(keep.sum())
+                st.bases_out += sum(int(seq_len[keep].sum())
+                                    for seq_len, _ in cut)
+            with metrics.span("qc.write"):
+                for f, rec, (seq_len, qual_len) in ((f1, r1, cut[0]),
+                                                    (f2, r2, cut[1])):
+                    _write_records(f, rec, keep, seq_len, qual_len)
     return st

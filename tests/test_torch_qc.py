@@ -143,7 +143,8 @@ def test_refined_files_byte_equal_to_jax(tmp_path, batch):
                                str(tmp_path / "j2.fq"))
     got = qc.refine_fastq(fq1, fq2, str(tmp_path / "t1.fq"),
                           str(tmp_path / "t2.fq"), "cpu", batch=batch)
-    assert got.__dict__ == want.__dict__
+    # the JAX package's counts; the port counts its overlap scans besides
+    assert {k: vars(got)[k] for k in vars(want)} == vars(want)
     assert 0 < got.pairs_out < got.pairs_in and got.adapter_trimmed > 0
     for m in "12":
         assert ((tmp_path / f"t{m}.fq").read_bytes()

@@ -26,6 +26,15 @@ CELL_SPANS = {
     "species20_direct.cohort_d5": (
         "reference", "seed_index", "write", "align.parse", "align.seed",
         "align.sw"),
+    "sim100_k32_qc.raw_d5": (
+        "qc.parse", "qc.encode", "qc.overlap", "qc.filter", "qc.write"),
+}
+# the end-to-end metric each cell's span metrics move: the window's rate
+# where it is one, else `setup_s`, whose warm-up `bkp` runs the same spans
+CELL_MOVES = {
+    "sim100_k32.cohort_d5": "pairs_per_s",
+    "species20_direct.cohort_d5": "setup_s",
+    "sim100_k32_qc.raw_d5": "setup_s",
 }
 # metric name -> (its cell, the span it reads)
 METRICS = {
@@ -169,8 +178,7 @@ def test_registry_loads_each_span_metric_for_its_cell_only(name):
     assert entry["workloads"] == [cell]
     assert (entry["source"], entry["unit"], entry["better"]) == (
         "program_span", "s", "lower")
-    assert entry["moves"] == ("setup_s" if name.endswith(".direct")
-                              else "pairs_per_s")
+    assert entry["moves"] == CELL_MOVES[cell]
     # the layer text of the stage the span sits in; orchestration's
     # outside every stage
     family = span.split(".")[0] if "." in span else None

@@ -1,11 +1,12 @@
 """The spans of the port's `bkp` (utils/metrics.span) on the CPU, on the
-bench's small fixture (4 x 20 kb, k=18), in the k-mer path and in direct
-mode, each run once under a CPU-only torch.profiler: the run records
-every span its mode reaches; each family of spans sums to no more than
-its stage's wall, and the orchestration's spans to no more than the
-sample's wall outside every stage; on the trace each span is a
-user_annotation inside its stage's, or outside every stage for the
-orchestration's, and its summed duration agrees with its counter."""
+bench's small fixture (4 x 20 kb, k=18), in the k-mer path, in the k-mer
+path after QC (`refine_fq`) and in direct mode, each run once under a
+CPU-only torch.profiler: the run records every span its mode reaches;
+each family of spans sums to no more than its stage's wall, and the
+orchestration's spans to no more than the sample's wall outside every
+stage; on the trace each span is a user_annotation inside its stage's,
+or outside every stage for the orchestration's, and its summed duration
+agrees with its counter."""
 
 import json
 import time
@@ -28,10 +29,14 @@ MODE_SPANS = {
         "peakset.flatten", "peakset.build") + ALIGN,
     "direct": ORCHESTRATION + ALIGN,
 }
+MODE_SPANS["qc"] = MODE_SPANS["kmer"] + (
+    "qc.parse", "qc.encode", "qc.overlap", "qc.filter", "qc.write")
+ALL_SPANS = {s for spans in MODE_SPANS.values() for s in spans}
 CASES = [(mode, span) for mode, spans in MODE_SPANS.items()
          for span in spans]
 FAMILIES = {"kmer": ("count", "scan", "peakset", "align"),
-            "direct": ("align",)}
+            "direct": ("align",),
+            "qc": ("qc", "count", "scan", "peakset", "align")}
 
 
 def _stage_of(span):
@@ -59,7 +64,7 @@ def bkp_run(tmp_path_factory):
                 detect_breakpoint(
                     ref, fq1, fq2, mode, str(d), "cpu",
                     cfg=Config().replace(kmer=KmerConfig(k=18)),
-                    use_kmer=mode == "kmer")
+                    use_kmer=mode != "direct", refine_fq=mode == "qc")
                 wall = time.perf_counter() - t0
             path = d / f"{mode}.json"
             prof.export_chrome_trace(str(path))
@@ -80,7 +85,7 @@ def bkp_run(tmp_path_factory):
 def test_bkp_records_every_span_its_mode_reaches(bkp_run, mode):
     run = bkp_run(mode)
     spans = {k[:-2] for k in run["counters"]
-             if k.endswith("_s") and k[:-2] in MODE_SPANS["kmer"]}
+             if k.endswith("_s") and k[:-2] in ALL_SPANS}
     assert spans == set(MODE_SPANS[mode])
     assert all(run["counters"][f"{s}_s"] > 0 for s in spans)
     # a span is no stage
