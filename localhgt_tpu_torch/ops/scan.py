@@ -7,9 +7,12 @@ helpers (`good_intervals`, `peaks_in_intervals`, `final_intervals`,
 `good_intervals`' merge loop, which is `merge_good_runs`.
 
 `finalize_contig` gives what `good_intervals` and `peaks_in_intervals`
-give, from a contig's masks where they are (on the card in stage B): only
-the good runs' edges and the peak arrays reach the host, and the merge
-loop runs there on the edges.
+give, from a contig's masks where they are (on the card in stage B), as a
+member code: a byte a contig position, whose bits say which positions are
+peak members (MEMBER), which member starts its peak (START) and which
+members the map build takes (TAKEN: a k-mer starts there). Only the good
+runs' edges and the peak positions reach the host, and the merge loop
+runs there on the edges; `members_of` expands a code on the host.
 """
 
 from __future__ import annotations
@@ -18,6 +21,11 @@ import numpy as np
 import torch
 
 from localhgt_tpu_torch.config import ScanConfig
+
+# bits of a member code byte (finalize_contig)
+MEMBER = 1  # a peak position inside a good interval
+START = 2   # the first member of its merge bin: a peak's position
+TAKEN = 4   # a member with a k-mer (position <= len - k): the map takes it
 
 
 def truncated_min(window: int, ratio: float) -> int:
@@ -180,45 +188,68 @@ def good_edges(good: torch.Tensor) -> torch.Tensor:
     return torch.nonzero(g[1:] != g[:-1]).flatten().to(torch.int32)
 
 
-def peak_members(peak: torch.Tensor, intervals, merge_bin: int):
-    """`peaks_in_intervals` where the mask is: (positions, members,
-    group_ids) as int32 tensors on peak's device, or None without a
-    member. `intervals` must be disjoint, ascending and never reversed
-    (merge_good_runs' output): membership is the prefix sum of +1 at each
-    start and -1 at each end, which counts every position once."""
-    if not intervals:
-        return None
+def member_code(peak: torch.Tensor, intervals, merge_bin: int,
+                k: int) -> torch.Tensor:
+    """`peaks_in_intervals` where the mask is, as a uint8 [L] member code
+    on peak's device (MEMBER, START, TAKEN bits). `intervals` must be
+    disjoint, ascending and never reversed (merge_good_runs' output):
+    membership is the prefix sum of +1 at each start and -1 at each end,
+    which counts every position once. A member starts its peak when no
+    member lies before it in its merge bin, where the previous member's
+    bin would differ in `peaks_in_intervals`."""
     L = peak.numel()
     dev = peak.device
+    code = torch.zeros(L, dtype=torch.uint8, device=dev)
+    if not intervals:
+        return code
     iv = torch.tensor(intervals, dtype=torch.int64).to(dev)
     marks = torch.zeros(L + 1, dtype=torch.int32, device=dev)
     one = torch.ones(len(intervals), dtype=torch.int32, device=dev)
     marks.index_add_(0, iv[:, 0], one)
     marks.index_add_(0, iv[:, 1], -one)
-    inside = torch.cumsum(marks[:L], 0, dtype=torch.int32) > 0
-    mem = torch.nonzero(peak & inside).flatten().to(torch.int32)
-    if mem.numel() == 0:
-        return None
-    bins = torch.div(mem, merge_bin, rounding_mode="floor")
-    first = torch.ones_like(mem, dtype=torch.bool)
-    first[1:] = bins[1:] != bins[:-1]
-    gid = torch.cumsum(first, 0, dtype=torch.int32) - 1
-    return mem[first], mem, gid
+    member = peak & (torch.cumsum(marks[:L], 0, dtype=torch.int32) > 0)
+    # members before each position; bins are contig-relative, so the rows
+    # of a [-1, merge_bin] view are the bins and column 0 their starts
+    before = torch.cumsum(member, 0, dtype=torch.int32) - member.int()
+    rows = torch.nn.functional.pad(before, (0, -L % merge_bin))
+    rows = rows.view(-1, merge_bin)
+    start = member & (rows == rows[:, :1]).view(-1)[:L]
+    code |= member.to(torch.uint8) * MEMBER
+    code |= start.to(torch.uint8) * START
+    code[: max(L - k + 1, 0)] |= member[: max(L - k + 1, 0)].to(
+        torch.uint8) * TAKEN
+    return code
 
 
 def finalize_contig(good: torch.Tensor, peak: torch.Tensor, window: int,
-                    pad: int, merge_bin: int, fetch):
+                    pad: int, merge_bin: int, k: int, out: torch.Tensor,
+                    fetch) -> np.ndarray:
     """`peaks_in_intervals(peak, good_intervals(good, window, pad),
-    merge_bin)` of one contig's bool [L] masks, equal in dtype, order and
-    value, computed where the masks are. `fetch(*tensors)` hands int32
-    tensors to the host as numpy arrays (utils/device.HostStaging): the
-    runs' edges, then the three peak arrays."""
+    merge_bin)` of one contig's bool [L] masks, computed where the masks
+    are: the member code goes to `out` (uint8 [L] on the same device,
+    see `member_code`), and the peak positions, int32 [P] ascending, come
+    back. `fetch(*tensors)` hands int32 tensors to the host as numpy
+    arrays (utils/device.HostStaging): the runs' edges, then the
+    positions."""
     L = good.numel()
     (edges,) = fetch(good_edges(good))
     edges = edges.astype(np.int64)
     ivs = merge_good_runs(edges[0::2], edges[1::2] - 1, L, window, pad)
-    got = peak_members(peak, ivs, merge_bin)
-    if got is None:
+    code = member_code(peak, ivs, merge_bin, k)
+    out.copy_(code)
+    (pos,) = fetch(torch.nonzero(code & START).flatten().to(torch.int32))
+    return pos
+
+
+def members_of(code: np.ndarray):
+    """Host expansion of a contig's member code: (positions, members,
+    group_ids) equal in dtype and value to what `peaks_in_intervals`
+    gives for the masks the code came from."""
+    code = np.asarray(code, np.uint8)
+    mem = np.flatnonzero(code & MEMBER).astype(np.int32)
+    if len(mem) == 0:
         return (np.zeros(0, np.int64), np.zeros(0, np.int32),
                 np.zeros(0, np.int32))
-    return tuple(fetch(*got))
+    first = (code[mem] & START) != 0
+    gid = np.cumsum(first, dtype=np.int32) - np.int32(1)
+    return mem[first], mem, gid

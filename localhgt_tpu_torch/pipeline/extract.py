@@ -7,9 +7,11 @@ described there):
      tables, caching the padded read codes on the device for the later
      read passes;
   B. scan the reference: gather per-position counts, good-window and peak
-     stencils, each contig's intervals and peaks on the device, only the
-     good runs' edges and the peak arrays copied back;
-  C. build the direct hash -> peak-id map, vote pairs that bridge two
+     stencils, each contig's intervals and peaks on the device, into a
+     member code of the whole reference that stays there; only the good
+     runs' edges and the peak positions are copied back;
+  C. build the direct hash -> peak-id map from the member code, vote
+     pairs that bridge two
      genomes' peaks (kernel K3), keep peaks with >= MIN_READS votes and
      emit merged intervals and bed lines.
 
@@ -223,16 +225,19 @@ def scan_rows(tables, codes, true_len, masks, k: int, scan_cfg,
 
 
 def scan_reference(tables, contigs: fasta.Contigs, masks, cfg: Config,
-                   device):
-    """Stage B: per-contig good intervals + peak member arrays, as
-    [(cid, positions, members, group_ids)] (scan.peaks_in_intervals).
+                   device) -> peaks_mod.PeakMembers:
+    """Stage B: each contig's good intervals and the peaks in them
+    (scan.peaks_in_intervals), as the member code of every reference
+    position on the device and each finalized contig's peak positions on
+    the host (peaks.PeakMembers).
 
     The masks stay on the device: each contig's rows are stitched into
     two masks of its length there, and `scan.finalize_contig` reduces
-    them to the peak arrays, which alone (with the good runs' edges) come
-    back, through one pinned buffer. Counters: `scan_finalize_contigs`,
-    the contigs finalized; `scan_finalize_d2h_bytes`, the bytes brought
-    back."""
+    them to the contig's slice of the member code. Only the good runs'
+    edges and the peak positions come back, through one pinned buffer.
+    The --max_peak cut clears the code of the peaks past it. Counters:
+    `scan_finalize_contigs`, the contigs finalized;
+    `scan_finalize_d2h_bytes`, the bytes brought back."""
     k = cfg.kmer.k
     halo = cfg.scan.window + 4 * k + 64
     longest = int(max(contigs.lengths)) if contigs.n else 0
@@ -252,27 +257,32 @@ def scan_reference(tables, contigs: fasta.Contigs, masks, cfg: Config,
             if e == L:
                 break
 
-    per_contig = []
+    found = peaks_mod.PeakMembers(
+        code=torch.zeros(len(contigs.codes), dtype=torch.uint8,
+                         device=device), peaks=[])
     state = {"total": 0, "stop": False}
     staging = HostStaging(device)
 
     def finalize(cid, good, peak):
         with metrics.span("scan.finalize"):
-            pos, mem, gid = scan.finalize_contig(
+            off = int(contigs.offsets[cid - 1])
+            out = found.code[off : off + good.numel()]
+            pos = scan.finalize_contig(
                 good, peak, cfg.scan.window, cfg.scan.good_pad,
-                cfg.scan.merge_close_peak, staging.fetch)
-            # --max_peak capacity (Peaks::init cpp:229-237): truncate
+                cfg.scan.merge_close_peak, k, out, staging.fetch)
+            # --max_peak capacity (Peaks::init cpp:229-237): truncate; the
+            # members of the peaks past `keep` lie at and past pos[keep]
             if state["total"] + len(pos) > cfg.scan.max_peak:
                 keep = max(0, cfg.scan.max_peak - state["total"])
-                sel = gid < keep
-                pos, mem, gid = pos[:keep], mem[sel], gid[sel]
+                out[int(pos[keep]):] = 0
+                pos = pos[:keep]
                 log.warning(
                     "Too many peaks (>%d)! Reduce the sampling size, or "
                     "appoint a larger max_peak_num (see --max_peak). "
                     "Truncating.", cfg.scan.max_peak)
         metrics.add("scan_finalize_contigs", 1)
         state["total"] += len(pos)
-        per_contig.append((cid, pos, mem, gid))
+        found.peaks.append((cid, pos))
         if state["total"] >= cfg.scan.max_peak:
             state["stop"] = True
 
@@ -314,7 +324,7 @@ def scan_reference(tables, contigs: fasta.Contigs, masks, cfg: Config,
     finally:
         staging.close()
     metrics.add("scan_finalize_d2h_bytes", staging.nbytes)
-    return per_contig
+    return found
 
 
 def vote_peaks(pset, fq1, fq2, masks, cfg: Config, ratio, device,
@@ -372,16 +382,17 @@ def extract(fq1: str, fq2: str, contigs: fasta.Contigs, cfg: Config,
     t = time.time()
     log.info("stage B: reference scan")
     with metrics.stage("scan"):
-        per_contig = scan_reference(tables, contigs, masks, cfg, device)
-    n_raw = sum(len(p) for _, p, _, _ in per_contig)
-    log.info("raw candidate peaks: %d in %.1fs", n_raw, time.time() - t)
+        found = scan_reference(tables, contigs, masks, cfg, device)
+    log.info("raw candidate peaks: %d in %.1fs", found.n, time.time() - t)
 
     t = time.time()
     with metrics.stage("peakset"):
-        pset = peaks_mod.build_direct_map(per_contig, contigs, tables, masks,
-                                          cfg.kmer.k, device)
+        pset = peaks_mod.build_direct_map(
+            found, contigs, tables, masks, cfg.kmer.k,
+            cfg.scan.merge_close_peak, device)
         _sync(device)
-    del tables  # the vote never touches the count tables: free them
+    # the vote never touches the count tables or the member code: free them
+    del tables, found
     log.info("peakset built in %.1fs", time.time() - t)
 
     t = time.time()

@@ -3,9 +3,12 @@
 Port of the direct-map and RankMap paths of localhgt_tpu/pipeline/peaks.py
 (the machinery is described there). On one device the map is an int32
 [2^k] tensor for every k; at k=32 that is 16 GiB, which an 80 GB card
-holds. The multi-device extraction (parallel/extract_sharded.py) uses the
-RankMap instead: a presence bitmap with prefix popcounts plus the peak
-ids in hash order, small enough for a copy on every device. Both maps
+holds. It is built from stage B's member code, a byte a reference
+position that stays on the device (PeakMembers). The multi-device
+extraction (parallel/extract_sharded.py) uses the RankMap instead, from
+member arrays flattened on the host (`_flatten_members`): a presence
+bitmap with prefix popcounts plus the peak ids in hash order, small
+enough for a copy on every device. Both maps
 store the max peak id per hash, so lookups give the same ids.
 `rankmap_from_jax` / `rankmap_to_jax` carry the RankMap's two arrays to
 and from the JAX package, whose layout they share element for element.
@@ -22,6 +25,7 @@ import torch
 
 from localhgt_tpu_torch.ops import count as count_mod
 from localhgt_tpu_torch.ops import cuda_vote, encode
+from localhgt_tpu_torch.ops import scan as scan_mod
 from localhgt_tpu_torch.utils import metrics
 
 MAP_BUILD_CHUNK = 1 << 22  # reference positions hashed per map-build step
@@ -65,10 +69,36 @@ class PeakSet:
         return len(self.contig) - 1
 
 
+@dataclass
+class PeakMembers:
+    """Stage B's peaks as the one-device map build reads them: `code`,
+    uint8 [len(contigs.codes)] on the device, the member code of every
+    reference position (ops/scan.py: MEMBER, START, TAKEN bits; zero in a
+    contig never finalized); `peaks`, the (contig id, int32 contig-relative
+    peak positions) of each finalized contig, in order, on the host."""
+
+    code: torch.Tensor
+    peaks: list
+
+    @property
+    def n(self) -> int:
+        return sum(len(p) for _, p in self.peaks)
+
+    def per_contig(self, contigs) -> list:
+        """(cid, positions, members, group_ids) of each finalized contig as
+        `scan.peaks_in_intervals` gives them, expanded on the host."""
+        out = []
+        for cid, _ in self.peaks:
+            off = int(contigs.offsets[cid - 1])
+            code = self.code[off : off + contigs.length_of(cid)]
+            out.append((cid, *scan_mod.members_of(code.cpu().numpy())))
+        return out
+
+
 def _flatten_members(per_contig, contigs, k):
-    """Host: peak table (contig, pos) + flat member positions in global
-    coordinates of the concatenated code array, with their peak ids.
-    Consumes `per_contig` (the per-contig arrays are freed as they are
+    """Host, for the multi-device map build: peak table (contig, pos) +
+    flat member positions in global coordinates of the concatenated code
+    array, with their peak ids. Consumes `per_contig` (the per-contig arrays are freed as they are
     copied). Same stream as the reference's _flatten_members."""
     pcontig = [np.zeros(1, np.int32)]
     ppos = [np.zeros(1, np.int64)]
@@ -105,38 +135,85 @@ def _member_keys(h, v, tables, gpos, pids):
     return hm[ok], pids[None, :].expand_as(hm)[ok]
 
 
-def _build_map_chunk(direct_map, tables, codes_chunk, gpos, pids, masks,
-                     k: int) -> None:
-    """Hash one reference chunk and scatter-MAX its members' peak ids into
-    `direct_map` in place (== the reference's last-writer overwrite; max
-    composes across chunks)."""
+def _build_map_chunk(direct_map, tables, codes_chunk, code, pid0: int,
+                     masks, k: int) -> torch.Tensor:
+    """Hash one reference chunk (codes_chunk uint8 [n]) and scatter-MAX its
+    members' peak ids into `direct_map` in place (== the reference's
+    last-writer overwrite; max composes across chunks). `code` is the
+    chunk's member code, uint8 [n], and `pid0` the number of peaks that
+    start before the chunk: a member's peak id counts the peak starts at
+    or before it. Every position scatters at its own hash: its peak id
+    where the map takes it, past `_member_keys`' filters, and 0 elsewhere,
+    a no-op on a map of ids >= 0; so nothing waits on the device. Returns
+    the number of members the map takes, on the device."""
     h, v = encode.canonical_hashes(codes_chunk[None, :], masks, k)
-    keys, vals = _member_keys(h[:, 0, :], v[0, :], tables, gpos, pids)
-    direct_map.scatter_reduce_(0, keys, vals, reduce="amax")
+    pid = torch.cumsum((code & scan_mod.START) != 0, 0,
+                       dtype=torch.int32) + pid0
+    taken = (code & scan_mod.TAKEN) != 0
+    for i, t in enumerate(tables):  # a coder at a time: [n] temporaries
+        hi = h[i, 0]
+        ok = (taken & v[0] & (hi != 0) & (hi != count_mod.SENTINEL)
+              & (count_mod.table_lookup(t, hi) > 0))
+        direct_map.scatter_reduce_(0, hi, torch.where(ok, pid, 0),
+                                   reduce="amax")
+    return taken.sum()
 
 
-def build_direct_map(per_contig, contigs, tables, masks, k: int,
-                     device) -> PeakSet:
-    """Device build of the hash -> peak-id map. Reference chunks with no
-    peak member are skipped. Consumes `per_contig`."""
+def build_direct_map(members: PeakMembers, contigs, tables, masks, k: int,
+                     merge_bin: int, device) -> PeakSet:
+    """Device build of the hash -> peak-id map from stage B's member code,
+    which never leaves the device; the loop over chunks waits on nothing.
+    A reference chunk is skipped when no peak lies in it or less than
+    `merge_bin` bp before it (a peak's members share its merge bin).
+    Counter `peakset_members`: the members the map takes, read once at
+    the end."""
+    CH = MAP_BUILD_CHUNK
     with metrics.span("peakset.flatten"):
-        pcontig, ppos, gpos, pids = _flatten_members(per_contig, contigs, k)
+        pcontig, ppos, before = _peak_table(members.peaks, contigs)
+        chunks = [(base, before(base))
+                  for base in range(0, len(contigs.codes), CH)
+                  if before(base - merge_bin + 1) < before(base + CH)]
     direct_map = torch.zeros(1 << k, dtype=torch.int32, device=device)
-    total = len(contigs.codes)
+    taken = torch.zeros((), dtype=torch.int64, device=device)
+    pinned = torch.device(device).type == "cuda"
     with metrics.span("peakset.build"):
-        for base in range(0, max(total, 1), MAP_BUILD_CHUNK):
-            lo = int(np.searchsorted(gpos, base))
-            hi = int(np.searchsorted(gpos, base + MAP_BUILD_CHUNK))
-            if hi == lo:
-                continue
-            codes = np.full(MAP_BUILD_CHUNK + k, 4, np.uint8)
-            avail = contigs.codes[base : base + MAP_BUILD_CHUNK + k]
-            codes[: len(avail)] = avail
-            _build_map_chunk(
-                direct_map, tables, torch.from_numpy(codes).to(device),
-                torch.from_numpy(gpos[lo:hi] - base).to(device),
-                torch.from_numpy(pids[lo:hi]).to(device), masks, k)
+        for base, pid0 in chunks:
+            n = min(CH, len(contigs.codes) - base)
+            # pinned, so the upload waits on nothing (the host allocator
+            # reuses a block only once its copy is done)
+            codes = torch.full((n + k,), 4, dtype=torch.uint8,
+                               pin_memory=pinned)
+            avail = contigs.codes[base : base + n + k]
+            codes.numpy()[: len(avail)] = avail
+            code = torch.zeros(n + k, dtype=torch.uint8, device=device)
+            code[:n] = members.code[base : base + n]
+            taken += _build_map_chunk(
+                direct_map, tables, codes.to(device, non_blocking=True),
+                code, pid0, masks, k)
+    metrics.add("peakset_members", int(taken))
     return PeakSet(contig=pcontig, pos=ppos, direct_map=direct_map)
+
+
+def _peak_table(peaks, contigs):
+    """(contig int32 [P+1], pos int64 [P+1], before) of stage B's
+    per-contig peaks, 1-based with a sentinel at 0; `before(x)` counts the
+    peaks whose global position (in `contigs.codes`) is below x."""
+    counts = np.array([len(p) for _, p in peaks], np.int64)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    pcontig = np.zeros(int(cum[-1]) + 1, np.int32)
+    ppos = np.zeros(len(pcontig), np.int64)
+    for (cid, pos), a, b in zip(peaks, cum[:-1], cum[1:]):
+        pcontig[a + 1 : b + 1] = cid
+        ppos[a + 1 : b + 1] = pos
+    offs = np.array([contigs.offsets[cid - 1] for cid, _ in peaks], np.int64)
+
+    def before(x: int) -> int:
+        i = int(np.searchsorted(offs, x, side="right")) - 1
+        if i < 0:
+            return 0
+        return int(cum[i] + np.searchsorted(peaks[i][1], x - offs[i]))
+
+    return pcontig, ppos, before
 
 
 # --------------------------------------------------------------------------

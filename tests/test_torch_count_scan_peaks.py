@@ -203,8 +203,25 @@ def test_scan_hits_matches_reference(k):
     np.testing.assert_array_equal(got_p.numpy(), want_p)
 
 
+def _members(per_contig, contigs, k):
+    """peaks.PeakMembers of host per-contig arrays (cid, positions,
+    members, group_ids): the member code stage B's finalize writes."""
+    code = np.zeros(len(contigs.codes), np.uint8)
+    for cid, _, mem, gid in per_contig:
+        first = np.ones(len(gid), bool)
+        first[1:] = gid[1:] != gid[:-1]
+        code[contigs.offsets[cid - 1] + mem] = (
+            scan.MEMBER | np.where(first, scan.START, 0)
+            | np.where(mem <= contigs.length_of(cid) - k, scan.TAKEN, 0))
+    return peaks.PeakMembers(
+        code=torch.from_numpy(code),
+        peaks=[(cid, pos.astype(np.int32)) for cid, pos, _, _ in per_contig])
+
+
 def test_build_direct_map_matches_jax():
-    """Count tables made by the JAX package, fed to both map builds."""
+    """Count tables made by the JAX package, fed to both map builds: the
+    JAX package's from host member arrays, the port's from their member
+    code."""
     k = 18
     rng = np.random.default_rng(5)
     lens = [7000, 5000]
@@ -235,8 +252,8 @@ def test_build_direct_map_matches_jax():
         per_contig(), contigs, tuple(jnp.asarray(t) for t in tables),
         masks, k)
     got = peaks.build_direct_map(
-        per_contig(), contigs, count.tables_from_jax(tables, k, "cpu"),
-        masks, k, "cpu")
+        _members(per_contig(), contigs, k), contigs,
+        count.tables_from_jax(tables, k, "cpu"), masks, k, 50, "cpu")
     dm = got.direct_map.numpy()
     assert (dm > 0).sum() > 100
     np.testing.assert_array_equal(dm, np.asarray(want.direct_map))

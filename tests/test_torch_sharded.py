@@ -469,7 +469,8 @@ def test_scan_reference_sharded_at_contig_ends_and_max_peak(sample, single):
     masks, _ = encode.hasher_for(K, 3, cfg.kmer.seed)
     for max_peak in (cfg.scan.max_peak, 7):
         c = cfg.replace(scan=ScanConfig(max_peak=max_peak))
-        want = extract.scan_reference(tables, odd, masks, c, "cpu")
+        want = extract.scan_reference(tables, odd, masks, c,
+                                      "cpu").per_contig(odd)
         for n in (3, 8):
             mesh = cpu_mesh(n)
             slices = [[t[lo:hi] for lo, hi in
@@ -486,9 +487,10 @@ def test_scan_reference_sharded_at_contig_ends_and_max_peak(sample, single):
 
 def test_scan_reference_equals_jax(sample, single):
     """extract.scan_reference (masks stitched and finalized on the device,
-    here the CPU) against the JAX package's on the fixture's reference and
-    on the odd contigs, with and without a --max_peak cut: every (cid,
-    positions, members, group_ids) equal in dtype and value."""
+    here the CPU, into a member code) against the JAX package's on the
+    fixture's reference and on the odd contigs, with and without a
+    --max_peak cut: every (cid, positions, members, group_ids) of the
+    code's host expansion equal in dtype and value."""
     ref, _, _ = sample
     tables = [torch.from_numpy(t) for t in single[0]]
     jtables = [jnp.asarray(a) for a in count.tables_to_jax(tables, K)]
@@ -502,7 +504,8 @@ def test_scan_reference_equals_jax(sample, single):
                                    scan=ScanConfig(max_peak=max_peak))
             jcfg = JaxConfig().replace(kmer=JaxKmerConfig(k=K),
                                        scan=JaxScanConfig(max_peak=max_peak))
-            got = extract.scan_reference(tables, contigs, masks, cfg, "cpu")
+            got = extract.scan_reference(tables, contigs, masks, cfg,
+                                         "cpu").per_contig(contigs)
             want = jax_extract.scan_reference(jtables, jcontigs, jmasks,
                                               jcfg)
             assert [g[0] for g in got] == [w[0] for w in want]
